@@ -4,7 +4,10 @@ analysis), for NVIDIA Hopper GPUs.
 The JAX package ``petiga_tpu`` is the reference; this package mirrors its
 layout (``core/``, ``sparse/``, ``assembly/``, ``solve/``, ``models/``) and
 imports neither ``jax`` nor ``petiga_tpu``.  Tensors live on the device a
-``Space`` is given (``Space(..., device=...)``); there is no global device.
+``Space`` is given (``Space(..., device=...)``).  Every entry point takes
+``device=None``, meaning :func:`default_device`: the CUDA device, or an
+error when there is none.  The CPU is used only when the caller asks for
+it (``device="cpu"``), as the tests do.
 
 The stencil SpMV — full and symmetric storage — runs through hand-written
 CUDA kernels (``csrc/stencil_spmv.cu``) built with ``nvcc`` at first use;
@@ -22,4 +25,22 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["core", "sparse", "assembly", "solve", "models", "interop"]
+__all__ = ["core", "sparse", "assembly", "solve", "models", "interop", "entry",
+           "default_device", "resolve_device"]
+
+
+def default_device() -> torch.device:
+    """The device of every entry point called without ``device``: the
+    CUDA device.  Raises when none is present; never returns the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "petiga_tpu_torch runs on a CUDA device unless told otherwise, and "
+            "none is present; pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means
+    :func:`default_device`."""
+    return default_device() if device is None else torch.device(device)

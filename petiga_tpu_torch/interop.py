@@ -1,11 +1,12 @@
-"""Carry the reference's assembled state into the port.
+"""Carry the reference's state into the port.
 
-The system has no weights: its state is the assembled operator and the
-vectors.  These helpers take the JAX package's arrays as numpy (``np.asarray``
-of a ``PallasStencilOperator.DT`` or a ``StencilMatrix.data``) and return a
-port :class:`~petiga_tpu_torch.sparse.spmv.StencilOperator` computing the
-same product.  Spaces need no conversion: build a port ``Space`` from the
-same ``Axis`` arguments; its host tables are bit-identical.
+The system has no weights: its state is the discretization, the assembled
+operator and the vectors.  These helpers take the JAX package's arrays as
+numpy (``np.asarray`` of a ``PallasStencilOperator.DT`` or a
+``StencilMatrix.data``) and its objects duck-typed (any object with the
+reference's fields), and return the port's counterpart.  This module is
+the only one that knows both layouts, and it imports nothing of the
+reference.  ``device=None`` is the CUDA device everywhere.
 """
 
 from __future__ import annotations
@@ -13,11 +14,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import resolve_device
+from .core.axis import Axis
+from .core.quadrature import Rule
+from .core.space import BoundaryCondition, Space
 from .sparse.spmv import StencilOperator
-from .sparse.stencil import Stencil
+from .sparse.stencil import Stencil, StencilMatrix, SymmetricStencilMatrix
 
 __all__ = [
     "as_stencil",
+    "space_from_reference",
+    "stencil_matrix_from_reference",
     "operator_from_jax_planes",
     "operator_from_stencil_data",
     "random_stencil_data",
@@ -36,11 +43,50 @@ def as_stencil(stencil) -> Stencil:
 
 
 def _torch(a, dtype, device):
-    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return torch.as_tensor(np.array(a), dtype=dtype, device=resolve_device(device))
+
+
+def space_from_reference(space, dtype=torch.float64, device=None) -> Space:
+    """The port's :class:`Space` for a reference ``Space``: same knot
+    vectors and quadrature rules (so the host tables are bit-identical),
+    with its geometry, rational weights, properties, boundary values,
+    loads and forms, and fix table carried across from its host
+    fields."""
+    axes = [Axis(p=int(ax.p), U=np.array(ax.U, dtype=np.float64),
+                 periodic=bool(ax.periodic)) for ax in space.axes]
+    rules = [Rule(kind=str(r.kind), points=np.array(r.points, dtype=np.float64),
+                  weights=np.array(r.weights, dtype=np.float64)) for r in space.rules]
+    sp = Space(axes, dof=int(space.dof), rule=rules, basis_type=space.basis_type,
+               order=int(space.order), nsd=int(space.nsd), dtype=dtype, device=device)
+    if space.geometry is not None:
+        sp.init_geometry(np.array(space.geometry), None if space.rational is None
+                         else np.array(space.rational))
+    if space.property is not None:
+        sp.set_property(np.array(space.property))
+    if space.fix_table is not None:
+        sp.set_fix_table(np.array(space.fix_table))
+    sp.bc = [[BoundaryCondition(list(f.value), list(f.load)) for f in faces]
+             for faces in space.bc]
+    sp.bc_visit = [[bool(v) for v in faces] for faces in space.bc_visit]
+    return sp
+
+
+def stencil_matrix_from_reference(A, dtype=None, device=None):
+    """The port's :class:`StencilMatrix` (or
+    :class:`SymmetricStencilMatrix`, for data with the ``Ku`` upper slots
+    only) for any object with the reference's ``stencil`` and node-major
+    ``data`` fields."""
+    st = as_stencil(A.stencil)
+    data = _torch(A.data, dtype, device)
+    if data.shape[1] == st.K:
+        return StencilMatrix(st, data)
+    if data.shape[1] == (st.K + 1) // 2:
+        return SymmetricStencilMatrix(st, data)
+    raise ValueError(f"data has {data.shape[1]} slots for a stencil of K={st.K}")
 
 
 def operator_from_jax_planes(stencil, DT: np.ndarray, align=None, symmetric=False,
-                             device="cpu", dtype=None) -> StencilOperator:
+                             device=None, dtype=None) -> StencilOperator:
     """From the reference's ``(P, M, 128)`` kernel planes laid out on its
     extended grid (periodic halo plus the high-side ``align`` pads): drop
     the flat tail and the alignment volume, keep the periodic halos."""
@@ -65,17 +111,12 @@ def operator_from_jax_planes(stencil, DT: np.ndarray, align=None, symmetric=Fals
 
 
 def operator_from_stencil_data(stencil, data: np.ndarray, symmetric=False,
-                               device="cpu", dtype=None) -> StencilOperator:
+                               device=None, dtype=None) -> StencilOperator:
     """From node-major ``(nnodes, K, dof, dof)`` slot data (the reference
     ``StencilMatrix.data``), or ``(nnodes, Ku, dof, dof)`` upper-slot data
     (``SymmetricStencilMatrix.data``) with ``symmetric``."""
-    st = as_stencil(stencil)
-    data = _torch(data, dtype, device)
-    op = StencilOperator(st, dtype=data.dtype, device=device,
-                         kind="sym" if symmetric else "full")
-    grid = data.reshape(tuple(st.node_shape[::-1]) + (op.nplanes,))
-    op._set_planes(op.pack_planes(grid))
-    return op
+    cls = SymmetricStencilMatrix if symmetric else StencilMatrix
+    return cls(as_stencil(stencil), _torch(data, dtype, device)).fast_operator()
 
 
 def random_stencil_data(stencil, seed, symmetric=False) -> np.ndarray:

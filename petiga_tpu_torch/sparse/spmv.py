@@ -38,6 +38,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import resolve_device
 from .stencil import Stencil
 
 __all__ = [
@@ -206,13 +207,14 @@ def _spmv_sym_plain(DTu, xb, shifts_u, G, out):
 
 class StencilOperator:
     """A stencil operator held as slot-major planes on ``device`` (the
-    port of ``PallasStencilOperator``).
+    port of ``PallasStencilOperator``; ``device=None`` is the CUDA
+    device).
 
     Build with :meth:`from_planes` / :meth:`from_planes_symmetric` (the
     zero-copy path of plane assembly) or pack node-grid data with
     :meth:`pack_planes`.  ``kind`` is ``"full"`` or ``"sym"``."""
 
-    def __init__(self, stencil: Stencil, *, dtype=torch.float32, device="cpu",
+    def __init__(self, stencil: Stencil, *, dtype=torch.float32, device=None,
                  kind: str = "full"):
         if kind not in ("full", "sym"):
             raise ValueError(f"kind must be 'full' or 'sym', got {kind!r}")
@@ -221,7 +223,7 @@ class StencilOperator:
         st = self.st = stencil
         self.kind = kind
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dof = st.dof
         self.Ne = ext_shape(st)
         self.next = int(np.prod(self.Ne))

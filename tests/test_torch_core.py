@@ -55,7 +55,7 @@ def test_axis_rule_tabulation_bit_identical(p, nel, C, per):
                                            (1, 3, 6, (True,))])
 def test_factor_and_fine_mats_bit_identical(dim, p, nel, per):
     js = JSpace([JAxis.uniform(p=p, nel=nel, periodic=q) for q in per], dtype=jnp.float64)
-    ts = TSpace([TAxis.uniform(p=p, nel=nel, periodic=q) for q in per], dtype=torch.float64)
+    ts = TSpace([TAxis.uniform(p=p, nel=nel, periodic=q) for q in per], dtype=torch.float64, device="cpu")
     jf, tf = jconv._axis_factor_mats(js, jnp.float64), tconv._axis_factor_mats(ts, torch.float64)
     for d in range(dim):
         for da in range(3):
@@ -70,7 +70,7 @@ def test_factor_and_fine_mats_bit_identical(dim, p, nel, per):
 @pytest.mark.parametrize("dim,nel", [(2, 5), (3, 3)])
 def test_space_tables_and_multiplicity(dim, nel):
     js = jpoisson.make_space(dim, p=2, nel=nel, dtype=jnp.float64)
-    ts = tpoisson.make_space(dim, p=2, nel=nel, dtype=torch.float64)
+    ts = tpoisson.make_space(dim, p=2, nel=nel, dtype=torch.float64, device="cpu")
     assert js.node_shape == ts.node_shape and js.elem_shape == ts.elem_shape
     jm, jv = js.dirichlet_mask()
     tm, tv = ts.dirichlet_mask()
@@ -98,3 +98,84 @@ def test_port_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# ------------------------------------------------- default device, Space
+
+
+def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
+    """With no ``device`` every entry point asks for the CUDA device and
+    raises when there is none; it never builds on the CPU by itself."""
+    import petiga_tpu_torch
+    from petiga_tpu_torch import entry, interop
+    from petiga_tpu_torch.sparse.spmv import StencilOperator
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        petiga_tpu_torch.default_device()
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        tpoisson.make_space(3, nel=2)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        TSpace([TAxis.uniform(p=1, nel=2)])
+    st = tasm.stencil_of(tpoisson.make_space(2, nel=2, device="cpu"))
+    data = interop.random_stencil_data(st, 0)
+    for build in (lambda: StencilOperator(st),
+                  lambda: interop.operator_from_stencil_data(st, data),
+                  lambda: interop.operator_from_jax_planes(st, data.reshape(st.K, -1)),
+                  lambda: entry.entry()):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            build()
+    assert petiga_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert petiga_tpu_torch.default_device() == torch.device("cuda")
+
+
+@pytest.mark.parametrize("kind", ["open-3d", "periodic-C0-2d"])
+def test_space_index_maps_and_views(kind):
+    from petiga_tpu_torch import interop
+
+    if kind == "open-3d":
+        js = JSpace([JAxis.uniform(p=2, nel=3), JAxis.uniform(p=1, nel=4),
+                     JAxis.uniform(p=2, nel=2)], dof=2, dtype=jnp.float64)
+    else:
+        js = JSpace([JAxis.uniform(p=2, nel=5, periodic=True),
+                     JAxis.uniform(p=2, nel=3, continuity=0)], dof=2, nsd=3,
+                    dtype=jnp.float64)
+    rng = np.random.default_rng(0)
+    js.init_geometry(rng.normal(size=(js.nnodes, js.nsd)), rng.uniform(1, 2, js.nnodes))
+    js.set_property(rng.normal(size=(js.nnodes, 3)))
+    js.set_fix_table(rng.normal(size=(js.nnodes, 2)))
+    js.set_boundary_value(1, 0, 1, 0.5).set_boundary_load(1, 1, 0, 2.0)
+    js.set_boundary_form(1, 1)
+    ts = interop.space_from_reference(js, device="cpu")
+    assert ts.has_geometry and ts.is_rational and ts.nsd == js.nsd and ts.order == js.order
+    assert (ts.nen, ts.nqp, ts.ndofs) == (js.nen, js.nqp, js.ndofs)
+    assert ts.nen_shape == js.nen_shape and ts.nqp_shape == js.nqp_shape
+    assert _same(ts.mapping, js.mapping) and ts.mapping.dtype == np.int32
+    ids = np.array([0, js.nel - 1, js.nel // 2])
+    assert _same(ts.device_emap(torch.as_tensor(ids)).numpy(), js.mapping[ids])
+    assert _same(ts.element_nodes(ids), js.mapping[ids])
+    assert _same(ts.tensor("mapping").numpy(), js.mapping)
+    assert all(_same(a, b) for a, b in zip(ts.node_multi_index(), js.node_multi_index()))
+    assert _same(ts.greville_coordinates(), js.greville_coordinates())
+    assert _same(ts.flux_vector(), js.flux_vector())
+    assert ts.bc_visit == js.bc_visit
+    for a, b in zip(ts.dirichlet_mask(), js.dirichlet_mask()):
+        assert _same(a, b)
+    for key in ("geometry", "rational", "property"):
+        assert _same(ts.tensor(key).numpy(), getattr(js, key))
+    for key in ("tabs_value", "tabs_weight", "tabs_detJac", "tabs_point", "tabs_bnd_value"):
+        assert all(_same(t.numpy(), j) for t, j in zip(ts.tensor(key), js.device(key)))
+    with pytest.raises(KeyError):
+        ts.tensor("nope")
+    per = TSpace([TAxis.uniform(p=1, nel=2, periodic=True)], device="cpu")
+    with pytest.raises(ValueError, match="periodic axis"):
+        per.set_boundary_load(0, 0, 0, 1.0)
+    with pytest.raises(ValueError, match="side"):
+        ts.set_boundary_form(1, 2)
+    cl = ts.clone(dof=1, dtype=torch.float32, nsd=ts.dim)
+    assert (cl.dof, cl.dtype, cl.nsd, cl.device) == (1, torch.float32, ts.dim, ts.device)
+    assert cl.rules == ts.rules and not cl.has_geometry and cl.tabs[0].nel == ts.tabs[0].nel
+    # setters drop the cached tensors
+    ts.set_property(np.zeros((ts.nnodes, 1)))
+    assert ts.tensor("property").shape == (ts.nnodes, 1)

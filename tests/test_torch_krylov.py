@@ -50,11 +50,11 @@ def test_packed_cg_matches(shape, widths, sym):
     S = SymmetricStencilMatrix(st, jnp.asarray(up))
     if sym:
         jop = PallasStencilOperator.from_symmetric(S, interpret=True)
-        op = interop.operator_from_stencil_data(st, up, symmetric=True)
+        op = interop.operator_from_stencil_data(st, up, symmetric=True, device="cpu")
     else:
         A = S.to_full()
         jop = PallasStencilOperator(A, interpret=True)
-        op = interop.operator_from_stencil_data(st, np.asarray(A.data))
+        op = interop.operator_from_stencil_data(st, np.asarray(A.data), device="cpu")
     b = np.random.default_rng(5).normal(size=(st.nnodes, 1))
 
     jd = jop.packed_diag_inv()
@@ -71,7 +71,7 @@ def test_packed_cg_matches(shape, widths, sym):
 def test_unpacked_cg_jacobi_matches():
     st = JStencil(node_shape=(7, 6), widths=(2, 2), periodic=(False, False), dof=2)
     A = SymmetricStencilMatrix(st, jnp.asarray(_spd_upper(st, seed=11))).to_full()
-    op = interop.operator_from_stencil_data(st, np.asarray(A.data))
+    op = interop.operator_from_stencil_data(st, np.asarray(A.data), device="cpu")
     b = np.random.default_rng(6).normal(size=(st.nnodes, 2))
     jr = jkrylov.cg(A, jnp.asarray(b), M=jkrylov.jacobi_preconditioner(A), rtol=1e-10)
     tr = tkrylov.cg(op, torch.as_tensor(b), M=tkrylov.jacobi_preconditioner(op), rtol=1e-10)

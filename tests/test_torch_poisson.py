@@ -62,7 +62,7 @@ def _run(dim, nel, sym, conv_min):
         "x": x,
         "l2": l2,
     }
-    tsp = tpoisson.make_space(dim, p=2, nel=nel, dtype=torch.float64)
+    tsp = tpoisson.make_space(dim, p=2, nel=nel, dtype=torch.float64, device="cpu")
     U, info = tpoisson.solve_poisson(tsp, rtol=RTOL_SOLVE, symmetric=sym)
     op = info["A"]
     port = {
@@ -111,7 +111,7 @@ def test_reaction_diffusion_system_matches(sym):
     jsp = jpoisson.make_space(2, p=2, nel=5, dtype=jnp.float64)
     jop, jb = jassemble(jsp, jcoef, ctx, forcing=jpoisson.poisson_forcing(2.5, 0.7),
                         symmetric=sym, conv_min=1)
-    tsp = tpoisson.make_space(2, p=2, nel=5, dtype=torch.float64)
+    tsp = tpoisson.make_space(2, p=2, nel=5, dtype=torch.float64, device="cpu")
     op, b = tconv.assemble_coefficient_planes(tsp, tconv.poisson_coefficients, ctx,
                                               forcing=tpoisson.poisson_forcing(2.5, 0.7),
                                               symmetric=sym)
@@ -121,7 +121,7 @@ def test_reaction_diffusion_system_matches(sym):
 
 
 def test_unported_routes_raise():
-    sp = tpoisson.make_space(2, p=2, nel=4, dtype=torch.float64)
+    sp = tpoisson.make_space(2, p=2, nel=4, dtype=torch.float64, device="cpu")
 
     def varying(x, ctx):
         return {(1, 1): 1.0 + x[..., 0], (2, 2): 1.0}
@@ -141,11 +141,61 @@ def test_f32_planes_bit_identical(dim, nel, sym, monkeypatch):
 
     jsp = jpoisson.make_space(dim, p=2, nel=nel, dtype=jnp.float32)
     jop, _ = jassemble(jsp, jcoef, {"c": 0.0, "k": 1.0}, symmetric=sym, apply_fix=False)
-    tsp = tpoisson.make_space(dim, p=2, nel=nel, dtype=torch.float32)
+    tsp = tpoisson.make_space(dim, p=2, nel=nel, dtype=torch.float32, device="cpu")
     monkeypatch.setattr(tconv, "_CHUNK_BYTES", 4096)  # several z-chunks
     op, _ = tconv.assemble_coefficient_planes(tsp, tconv.poisson_coefficients,
                                               {"c": 0.0, "k": 1.0}, symmetric=sym,
                                               apply_fix=False)
     ref = interop.operator_from_jax_planes(jop.stencil, np.asarray(jop.DT), align=jop.align,
-                                           symmetric=sym)
+                                           symmetric=sym, device="cpu")
     assert op.DT.dtype == torch.float32 and torch.equal(op.DT, ref.DT)
+
+
+# ------------------------------------------------ pointwise engine, entry
+
+
+@pytest.mark.parametrize("dim,nel,continuity", [(2, 6, None), (2, 4, 0)])
+def test_pointwise_engine_matches_jax(dim, nel, continuity):
+    """``solve_poisson(engine="pointwise")``: node-major assembly, then
+    Jacobi-CG through ``StencilMatrix.fast_operator()``.  U at 1e-9
+    relative, iteration counts within 1 (the two CG loops round their
+    dots differently).  Reduced continuity is not conv-eligible, so
+    ``engine="auto"`` takes the pointwise path there on both sides."""
+    jsp = jpoisson.make_space(dim, p=2, nel=nel, continuity=continuity, dtype=jnp.float64)
+    tsp = tpoisson.make_space(dim, p=2, nel=nel, continuity=continuity,
+                              dtype=torch.float64, device="cpu")
+    engine = "pointwise" if continuity is None else "auto"
+    jU, jinfo = jpoisson.solve_poisson(jsp, c=0.3, rtol=1e-11, chunk=8, engine=engine)
+    tU, tinfo = tpoisson.solve_poisson(tsp, c=0.3, rtol=1e-11, chunk=8, engine=engine)
+    assert tinfo["engine"] == jinfo["engine"] == "pointwise"
+    assert abs(tinfo["iters"] - jinfo["iters"]) <= 1
+    assert tpoisson.l2_error(tsp, tU) == pytest.approx(jpoisson.l2_error(jsp, jU), rel=1e-8)
+    jU = np.asarray(jU)
+    assert np.abs(tU.numpy() - jU).max() <= 1e-9 * np.abs(jU).max()
+    np.testing.assert_allclose(tinfo["A"].data.numpy(), np.asarray(jinfo["A"].data),
+                               rtol=0, atol=1e-12)
+    with pytest.raises(ValueError, match="engine"):
+        tpoisson.solve_poisson(tsp, engine="fft")
+
+
+def test_entry_matches_jax():
+    """``entry()``'s step (assemble_system + at most 30 Jacobi-CG
+    iterations at rtol 1e-5) on a 4³ f64 mesh against the JAX package's,
+    and the real f32 8³ entry point on the CPU."""
+    import __graft_entry__ as jentry
+    from petiga_tpu_torch import entry as tentry
+
+    _, _, jstep = jentry._build(nel=4, dtype=jnp.float64)
+    jx, jres = jstep(jnp.asarray(1.5))
+    _, tstep = tentry._build(nel=4, dtype=torch.float64, device="cpu")
+    tx, tres = tstep(torch.tensor(1.5, dtype=torch.float64))
+    jx = np.asarray(jx)
+    assert np.abs(tx.numpy() - jx).max() <= 1e-9 * np.abs(jx).max()
+    assert float(tres) == pytest.approx(float(jres), rel=1e-6)
+
+    fn, args = tentry.entry(device="cpu")
+    x, res = fn(*args)
+    assert x.shape == (10**3, 1) and x.dtype == torch.float32
+    assert bool(torch.isfinite(x).all()) and float(res) < 1e-3
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tentry.dryrun_multichip(4)

@@ -50,8 +50,8 @@ def test_operator_matches_pallas(case):
                                     interpret=True, force_kind=force)
     assert jop.kind == ("sym" if sym else force or "vmem")
     op = interop.operator_from_jax_planes(jst, np.asarray(jop.DT), align=jop.align,
-                                          symmetric=sym)
-    op2 = interop.operator_from_stencil_data(jst, data, symmetric=sym)
+                                          symmetric=sym, device="cpu")
+    op2 = interop.operator_from_stencil_data(jst, data, symmetric=sym, device="cpu")
     assert op.kind == ("sym" if sym else "full")
     assert torch.equal(op.DT, op2.DT)
 
@@ -79,7 +79,7 @@ def test_operator_matches_pallas(case):
 
 def test_plain_path_does_not_count_launches():
     st = JStencil(node_shape=(5, 4), widths=(1, 1), periodic=(False, False), dof=1)
-    op = interop.operator_from_stencil_data(st, random_stencil_data(st, 0))
+    op = interop.operator_from_stencil_data(st, random_stencil_data(st, 0), device="cpu")
     before = dict(spmv.LAUNCHES)
     op.matvec(torch.ones(st.nnodes, 1, dtype=torch.float64))
     assert spmv.LAUNCHES == before
@@ -87,7 +87,7 @@ def test_plain_path_does_not_count_launches():
 
 def test_wrapper_rejects_bad_arguments():
     st = JStencil(node_shape=(5, 4), widths=(1, 1), periodic=(False, False), dof=1)
-    op = interop.operator_from_stencil_data(st, random_stencil_data(st, 0))
+    op = interop.operator_from_stencil_data(st, random_stencil_data(st, 0), device="cpu")
     xb = op.pack_vec(torch.ones(st.nnodes, 1, dtype=torch.float64))
     with pytest.raises(ValueError):
         spmv.stencil_spmv_full(op.DT, xb[:, 1:], op._shift_t, op.G)
