@@ -25,7 +25,42 @@ entry points at the sizes its users run:
         the generic pointwise engine: q-batched plane assembly at 128³
         and 256³ against the coefficient-form planes, and the node-major
         solve at 128³ through ``StencilMatrix.fast_operator()``;
-  entry ``petiga_tpu_torch.entry.entry()``.
+  entry ``petiga_tpu_torch.entry.entry()``;
+  ch64, ch128
+        the nonlinear and transient path: Cahn-Hilliard ``run_conv`` at
+        64³ and 128³ periodic C¹ p=2 in f32 (3 α-steps, dt 1e-9, Newton to
+        rtol 5e-3, at most 4 iterations, the settings of the TPU's ch64
+        witness), every Newton iteration a conv-assembled Jacobian (28
+        channels, order-2, value/gradient/Hessian state fields), a
+        conv-assembled residual and a Jacobi-BiCGStab solve through the
+        periodic stencil kernel.  Checks, per step: U finite and in (0, 1),
+        the Newton history reaches rtol 5e-3, the mean concentration is
+        conserved to 1e-6 (f64 sums), the free energy does not rise by more
+        than 1e-6 relative.  Prints per step the Newton and BiCGStab
+        iterations, residual and Jacobian ms, Jacobian Mnnz/s, BiCGStab ms
+        per iteration and each solve's true relative residual in f64, the
+        stencil kernel's launches (read from its count at each step's end;
+        step 1 includes the initial-velocity mass CG), and beside them the
+        TPU's ch64 values, unchecked;
+  nonlinear_f64
+        the card against itself at 16³: conv Jacobians (Cahn-Hilliard
+        periodic, Bratu open with its Dirichlet fix) against the AD
+        Jacobians of ``assemble_jacobian`` (1e-12 in f64, 1e-5 in f32), the
+        conv residual against ``assemble_function`` (1e-12), ``run_conv``
+        against ``run`` after 2 steps at dt 1e-11 (2e-9),
+        ``solve_bratu_conv`` against ``solve_bratu``, and Newton with the
+        Jacobian-free operator and with GMRES against Newton-CG on the
+        kernel operator, at λ = 6.80, rtol 1e-12 (1e-9, Newton iterations
+        within one); prints a GMRES(30) restart cycle's ms beside its host
+        least squares' ms.
+
+The periodic row of the kernel table is timed on the ch128 Jacobian at the
+final state (125 planes on the 132³ extended grid); its library call is a
+CSR matvec of the same periodic matrix (columns wrapped modulo N).  Every
+row's bound counts the planes' node columns, x and y: the zero halo
+columns that the periodic layout streams besides are a cost of the
+layout, not of the product (``planes_streamed_GB`` beside
+``planes_needed_GB``).
 
 CG iteration counts are held to the reference's recorded ones (45 and
 193).  In f32 the L2 error at these sizes is set by the rounding of one
@@ -38,7 +73,8 @@ just before each path and read just after it (``launches`` line, per
 phase); the kernels are timed beside their plain versions at the main
 path's shapes and beside one library call for the same product (a CSR
 ``torch.sparse`` matvec of the full matrix, built on the card from the
-planes at 128³ and at 256³), which the port itself never uses.
+planes at 128³ and at 256³, and of the periodic ch128 Jacobian), which
+the port itself never uses.
 
 Which checks a change of f32 summation order (in a kernel, the CG
 updates or the load vector) may move: the m256 ``cg_iters`` (the same
@@ -468,42 +504,51 @@ def phase_entry():
 
 
 def device_csr(op, rows_per_chunk=1 << 20):
-    """The matrix of a full-storage operator (dof 1, open axes) as a CSR
+    """The matrix of a full-storage operator (dof 1) as a CSR
     ``torch.sparse`` tensor, built on the card from the planes.
 
-    Entry (row n, slot s) sits in column ``n + c_s``.  It is kept where
-    the slot stays inside the node grid on every axis (the clipped slots
-    hold zero planes) and its value is not zero (the Dirichlet fix
-    leaves explicit zeros), so the library call moves no entry it could
-    do without.  Slots in order of their shift are columns in ascending
-    order, so a row chunk of the transposed planes under that mask is
-    already the row-major CSR payload: no sort, no host pass.  One pass
-    counts the rows' entries, a second fills them.  Indices are int32
-    where the count allows.  Returns ``(csr, nnz, index dtype)``."""
+    Entry (node n, slot s) is plane s at n's column of the extended grid
+    (periodic axes carry a halo of p on each side).  Its column is the
+    node ``n + off_s``: taken modulo ``N_d`` on a periodic axis (every
+    slot lands inside), and kept on an open axis only where the slot
+    stays inside the grid (the clipped slots hold zero planes).  Entries
+    whose value is zero (the Dirichlet fix leaves explicit zeros) are
+    dropped, so the library call moves no entry it could do without.
+    Each row's columns are sorted on the card.  One pass counts the rows'
+    entries, a second fills them; no host pass.  Indices are int32 where
+    the count allows.  Returns ``(csr, nnz, index dtype)``."""
     st = op.st
-    if op.kind != "full" or st.dof != 1 or any(st.periodic):
-        raise ValueError("device_csr: full storage, dof 1, open axes only")
-    dev, n, N = op.device, st.nnodes, st.node_shape
-    order = np.argsort(np.asarray(op.shifts), kind="stable")
-    perm = torch.as_tensor(order, device=dev)
-    offs = torch.as_tensor(st.slot_offsets()[order], device=dev)  # (K, dim)
-    shifts = torch.as_tensor(np.asarray(op.shifts)[order], device=dev)
+    if op.kind != "full" or st.dof != 1:
+        raise ValueError("device_csr: full storage, dof 1 only")
+    dev, n, N, Ne = op.device, st.nnodes, st.node_shape, op.Ne
+    offs = torch.as_tensor(st.slot_offsets(), device=dev)  # (K, dim)
 
     def chunk(r0):
-        """rows, their slot values in column order, and the keep mask"""
+        """rows, their values and columns in column order, the keep mask"""
         rows = torch.arange(r0, min(r0 + rows_per_chunk, n), device=dev)
-        v = op.DT[:, r0:r0 + rows.numel()].index_select(0, perm).T
-        mask = v != 0
-        rem = rows
-        for d, Nd in enumerate(N):  # axis 0 fastest
-            j = (rem % Nd)[:, None] + offs[None, :, d]
-            mask &= (j >= 0) & (j < Nd)
-            rem = rem // Nd
-        return rows, v, mask
+        rem, ext, col = rows, 0, 0
+        mask = torch.ones((rows.numel(), st.K), dtype=torch.bool, device=dev)
+        stride_n = stride_e = 1
+        for d in range(st.dim):  # axis 0 fastest
+            i = rem % N[d]
+            rem = rem // N[d]
+            ext = ext + (i + (Ne[d] - N[d]) // 2) * stride_e
+            j = i[:, None] + offs[None, :, d]
+            if st.periodic[d]:
+                j = j % N[d]
+            else:
+                mask &= (j >= 0) & (j < N[d])
+            col = col + j * stride_n
+            stride_n *= N[d]
+            stride_e *= Ne[d]
+        v = op.DT[:, ext].T
+        mask &= v != 0
+        col, order = torch.sort(torch.where(mask, col, n), dim=1)
+        return rows, v.gather(1, order), col, mask.gather(1, order)
 
     indptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
     for r0 in range(0, n, rows_per_chunk):
-        rows, _, mask = chunk(r0)
+        rows, _, _, mask = chunk(r0)
         indptr[rows + 1] = mask.sum(dim=1)
     torch.cumsum(indptr, 0, out=indptr)
     nnz = int(indptr[-1])
@@ -511,10 +556,10 @@ def device_csr(op, rows_per_chunk=1 << 20):
     vals = torch.empty(nnz, dtype=op.DT.dtype, device=dev)
     cols = torch.empty(nnz, dtype=itype, device=dev)
     for r0 in range(0, n, rows_per_chunk):
-        rows, v, mask = chunk(r0)
+        rows, v, col, mask = chunk(r0)
         lo, hi = int(indptr[r0]), int(indptr[r0 + rows.numel()])
         vals[lo:hi] = v[mask]
-        cols[lo:hi] = (rows[:, None] + shifts[None, :])[mask].to(itype)
+        cols[lo:hi] = col[mask].to(itype)
     csr = torch.sparse_csr_tensor(indptr.to(itype), cols, vals, size=(n, n),
                                   check_invariants=False)
     return csr, nnz, itype
@@ -574,6 +619,223 @@ def phase_f64(poisson):
         check(f"f64:l2_order:{lo}-{hi}", abs(order - 3.0) <= 0.15, value=order,
               want="3 +- 0.15")
     return l2
+
+
+# The TPU's run of the same ch64 settings (artifacts/r5_checks.json,
+# ch_conv_alpha_3d_64): printed beside, not checked (IEEE rounding differs).
+CH_TPU = {"newton_iters_total": 3, "fnorm_final": 0.13556015491485596, "s_per_step": 0.536}
+# Element chunk of the pointwise assemblies of the Cahn-Hilliard path (the
+# consistent initial velocity, the statistics): order-2 tables of 2^18
+# elements are about 10 GB in f32.
+CH_CHUNK = 1 << 18
+# The Cahn-Hilliard settings of the TPU witness (scripts/bench_ch_tpu.py):
+# in f32 the residual cancels to about 2e-3 relative, hence rtol 5e-3.
+CH_RUN = dict(dt=1e-9, rtol_newton=5e-3, max_newton=4)
+
+
+def ch_jacobian(ch, sp, U, dt):
+    """The α-step Jacobian of :func:`run_conv` at the state ``U``."""
+    from petiga_tpu_torch.assembly.convform import assemble_coefficient_planes
+    from petiga_tpu_torch.solve.ts import AlphaStepper
+
+    am, af, g = AlphaStepper(sp, ch.residual).coeffs()
+    ctx = {"theta": 1.5, "alpha": 3000.0, "shift": am / (g * dt), "scale": af}
+    op, _ = assemble_coefficient_planes(sp, ch.jacobian_coefficients, ctx,
+                                        fields={"c": (U.reshape(-1), 2)}, apply_fix=False)
+    return op
+
+
+def phase_ch(shape, nel, nsteps):
+    """The Cahn-Hilliard conv-α path (``run_conv``) at nel³ periodic C¹
+    p=2 in f32 from ``initial_condition(seed=0)``, counted; checks that U
+    stays finite and in (0, 1), that each step's Newton history reaches
+    rtol_newton, that the mean concentration is conserved (f64 sums) and
+    that the free energy does not rise.  Returns the space and the final
+    U."""
+    from petiga_tpu_torch.assembly.assemble import compute_scalar
+    from petiga_tpu_torch.models import cahnhilliard as ch
+    from petiga_tpu_torch.sparse import spmv
+
+    sp = ch.make_space(3, nel=nel, dtype=torch.float32)
+    U0 = ch.initial_condition(sp, seed=0)
+    mean0 = float(U0.double().mean())
+    E0 = float(compute_scalar(sp, ch.free_energy_stats, U0,
+                              {"theta": 1.5, "alpha": 3000.0, "cbar": 0.63}, order=1,
+                              chunk=CH_CHUNK)[0])
+    cnt, marks, bounds, seen = {}, [], [], [0]
+
+    def monitor(step, t, U, stats):
+        marks.append(time.perf_counter())
+        seen.append(spmv.LAUNCHES["full"])  # the count since the path began
+        bounds.append((float(U.min()), float(U.max()), bool(torch.isfinite(U).all()),
+                       float(U.double().mean())))
+
+    with counted(shape):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        U, log = ch.run_conv(sp, U0, nsteps=nsteps, counters=cnt, chunk=CH_CHUNK,
+                             monitor=monitor, **CH_RUN)
+        t = sync_s(t0)
+    nnz = sp.nnodes * 125
+    steps = []
+    for k in range(nsteps):
+        lin = cnt["lin_iters"][k]
+        steps.append({
+            "step": k + 1, "newton_iters": cnt["newton_iters"][k], "rhist": cnt["rhist"][k],
+            "residual_ms": [1e3 * x for x in cnt["residual_s"][k]],
+            "jacobian_ms": [1e3 * x for x in cnt["jacobian_s"][k]],
+            "jacobian_Mnnz_s": [nnz / x / 1e6 for x in cnt["jacobian_s"][k]],
+            "bicgstab_iters": lin,
+            "bicgstab_ms_per_iter": [1e3 * x / max(i, 1) for x, i in zip(cnt["solve_s"][k], lin)],
+            "bicgstab_true_rel": cnt["lin_true_rel"][k],
+            "kernel_launches": seen[k + 1] - seen[k],
+            "U_min_max": bounds[k][:2], "free_energy": float(log[k][2])})
+    s_steps = [b - a for a, b in zip(marks, marks[1:])]
+    emit({"phase": shape, "nnodes": sp.nnodes, "nsteps": nsteps, "seconds": t,
+          "first_step_s": marks[0] - t0, "s_per_step": s_steps,
+          "newton_iters_total": sum(cnt["newton_iters"]), "fnorm_final": cnt["fnorm"][-1],
+          "launches": PHASE_LAUNCHES[shape]["full"], "steps": steps,
+          "tpu_ch64": CH_TPU, "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+    energies = [E0] + [float(row[2]) for row in log]
+    for k in range(nsteps):
+        lo, hi, finite, mean = bounds[k]
+        check(f"{shape}:step{k + 1}:U_in_0_1", finite and 0.0 < lo and hi < 1.0, min=lo, max=hi)
+        h = cnt["rhist"][k]
+        check(f"{shape}:step{k + 1}:newton_converged", h[-1] <= CH_RUN["rtol_newton"] * h[0],
+              rhist=h, want=f"<= {CH_RUN['rtol_newton']} x first")
+        dev = abs(mean - mean0) / mean0
+        check(f"{shape}:step{k + 1}:mass", dev <= 1e-6, rel_dev=dev, want="<= 1e-6")
+        rise = (energies[k + 1] - energies[k]) / abs(energies[k])
+        check(f"{shape}:step{k + 1}:energy", rise <= 1e-6, rel_rise=rise, want="<= 1e-6")
+    return sp, U
+
+
+def phase_nonlinear_f64(nel=16):
+    """The card against itself at 16³ in f64 (and the Jacobians in f32):
+    conv Jacobians against AD Jacobians, the conv residual against the
+    pointwise one, ``run_conv`` against ``run``, ``solve_bratu_conv``
+    against ``solve_bratu``, and Newton with the Jacobian-free operator
+    against the kernel operator."""
+    from petiga_tpu_torch.assembly.assemble import (
+        assemble_function, assemble_jacobian, dirichlet_post_fix_homogeneous)
+    from petiga_tpu_torch.assembly.convform import (
+        assemble_coefficient_planes, assemble_residual_conv)
+    from petiga_tpu_torch.models import bratu, cahnhilliard as ch
+    from petiga_tpu_torch.solve.krylov import gmres, jacobi_preconditioner
+    from petiga_tpu_torch.solve.newton import newton
+
+    row = {"phase": "nonlinear_f64", "nel": nel}
+    rng = np.random.default_rng(12)
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}
+    ctx = {"theta": 1.5, "alpha": 3000.0, "shift": 7.3, "scale": 0.75}
+    lam = 6.80
+    for dt in (torch.float64, torch.float32):
+        name = str(dt)[6:]
+        sp = ch.make_space(3, nel=nel, dtype=dt)
+        C = torch.as_tensor(0.5 + 0.2 * np.sin(2 * np.pi * rng.random((sp.nnodes, 1))),
+                            dtype=dt, device=sp.device)
+
+        def fres(pt, ue, c):
+            return (0.75 * ch.residual(pt, 0.0, torch.zeros_like(ue), 0.0, ue, c)
+                    + 7.3 * pt.value(ue)[0] * pt.shape0)
+
+        op, _ = assemble_coefficient_planes(sp, ch.jacobian_coefficients, ctx,
+                                            fields={"c": (C, 2)}, apply_fix=False)
+        ad = assemble_jacobian(sp, fres, C, ctx, order=2).fast_operator()
+        rel = planes_rel_diff(op.DT, ad.DT)
+        row[f"ch_conv_vs_ad_jacobian_{name}"] = rel
+        check(f"nonlinear_f64:ch_jacobian:{name}", rel <= tol[dt], value=rel, want=f"<= {tol[dt]}")
+        bsp = bratu.make_space(3, p=2, nel=nel, dtype=dt)
+        mask = bsp.tensor("dirichlet")[0]
+        Ub = torch.as_tensor(rng.normal(scale=0.1, size=(bsp.nnodes, 1)), dtype=dt,
+                             device=bsp.device).masked_fill(mask, 0.0)
+        bop, _ = assemble_coefficient_planes(bsp, bratu.bratu_jacobian_coefficients,
+                                             {"lambda": lam}, fields={"u": Ub.reshape(-1)},
+                                             apply_fix=False)
+        bop, _ = dirichlet_post_fix_homogeneous(bsp, bop, torch.zeros_like(Ub))
+        bad = assemble_jacobian(bsp, bratu.bratu_residual, Ub, {"lambda": lam}).fast_operator()
+        rel = planes_rel_diff(bop.DT, bad.DT)
+        row[f"bratu_conv_vs_ad_jacobian_{name}"] = rel
+        check(f"nonlinear_f64:bratu_jacobian:{name}", rel <= tol[dt], value=rel,
+              want=f"<= {tol[dt]}")
+    # the conv residual against the pointwise one (f64)
+    sp = ch.make_space(3, nel=nel, dtype=torch.float64)
+    U = ch.initial_condition(sp, seed=2)
+    V = 0.1 * ch.initial_condition(sp, seed=5)
+    c2 = {"theta": 1.5, "alpha": 3000.0}
+    bc = assemble_residual_conv(sp, ch.residual_channels, c2,
+                                fields={"c": (U.reshape(-1), 2), "ct": (V.reshape(-1), 0)})
+    bp = assemble_function(sp, lambda pt, Xe, aux_e, c: ch.residual(pt, 1.0, aux_e["V0"], 0.0,
+                                                                     Xe, c), U, c2,
+                           aux={"V0": V})
+    rel = float((bc - bp).abs().max() / bp.abs().max())
+    row["ch_residual_conv_vs_pointwise"] = rel
+    check("nonlinear_f64:ch_residual", rel <= 1e-12, value=rel, want="<= 1e-12")
+    # run_conv against run, 2 steps
+    U0 = ch.initial_condition(sp, seed=3)
+    cnt = {}
+    Ua, loga = ch.run(sp, U0, dt=1e-11, nsteps=2,
+                      newton_kw=dict(rtol=1e-10, linear_solver="bicgstab", maxit=4))
+    Ub, logb = ch.run_conv(sp, U0, dt=1e-11, nsteps=2, rtol_newton=1e-10, max_newton=4,
+                           counters=cnt)
+    diff = float((Ua - Ub).abs().max())
+    row.update({"ch_run_conv_vs_run_max_diff": diff, "ch_run_conv_newton_iters": cnt["newton_iters"],
+                "ch_stats_run": [[float(v) for v in r] for r in loga],
+                "ch_stats_run_conv": [[float(v) for v in r] for r in logb]})
+    check("nonlinear_f64:run_conv_vs_run", diff <= 2e-9, value=diff, want="<= 2e-9")
+    # Bratu: the conv route and the Jacobian-free route against the AD route
+    bsp = bratu.make_space(3, p=2, nel=nel, dtype=torch.float64)
+    ra = bratu.solve_bratu(bsp, lam=lam, rtol=1e-12)
+    Uc, info = bratu.solve_bratu_conv(bsp, lam=lam, rtol=1e-12)
+    diff = float((Uc - ra.U).abs().max())
+    row.update({"bratu_ad_newton_iters": ra.iters, "bratu_conv_newton_iters": info["iters"],
+                "bratu_conv_cg_iters": info["cg_iters"], "bratu_conv_vs_ad_max_diff": diff})
+    check("nonlinear_f64:bratu_conv_vs_ad", diff <= 1e-9 and ra.converged
+          and abs(info["iters"] - ra.iters) <= 1, value=diff, iters=(info["iters"], ra.iters),
+          want="<= 1e-9, iterations within one")
+    U0 = torch.zeros((bsp.nnodes, 1), dtype=torch.float64, device=bsp.device)
+    rf = newton(bsp, bratu.bratu_residual, U0, {"lambda": lam}, rtol=1e-12, operator="fast")
+    rj = newton(bsp, bratu.bratu_residual, U0, {"lambda": lam}, rtol=1e-12, operator="jfnk")
+    diff = float((rf.U - rj.U).abs().max())
+    row.update({"bratu_fast_newton_iters": rf.iters, "bratu_jfnk_newton_iters": rj.iters,
+                "bratu_jfnk_vs_fast_max_diff": diff})
+    check("nonlinear_f64:jfnk_vs_fast", diff <= 1e-9 and rf.converged and rj.converged
+          and abs(rf.iters - rj.iters) <= 1, value=diff, iters=(rj.iters, rf.iters),
+          want="<= 1e-9, iterations within one")
+    # GMRES(30) on the card: Newton with it against CG on the same
+    # operator, and its host least squares (H to the host, LAPACK, y back
+    # to the card: one sync per restart cycle) timed beside a whole cycle
+    rg = newton(bsp, bratu.bratu_residual, U0, {"lambda": lam}, rtol=1e-12, operator="fast",
+                linear_solver="gmres")
+    diff = float((rf.U - rg.U).abs().max())
+    J = assemble_jacobian(bsp, bratu.bratu_residual, rf.U, {"lambda": lam}).fast_operator()
+    bv = torch.as_tensor(rng.normal(size=(bsp.nnodes, 1)), device=bsp.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gmres(J, bv, M=jacobi_preconditioner(J), rtol=1e-10, maxiter=3000)
+    t_g = sync_s(t0)
+    H = torch.as_tensor(rng.normal(size=(31, 30)), device=bsp.device)
+    e1 = torch.zeros((31, 1), dtype=torch.float64)
+    e1[0] = 1.0
+
+    def lsq():
+        return torch.linalg.lstsq(H.cpu(), e1).solution.to(bsp.device)
+
+    lsq()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        lsq()
+    t_l = sync_s(t0) / 20
+    cycles = res.iters // 30
+    row.update({"bratu_gmres_newton_iters": rg.iters, "bratu_gmres_vs_cg_max_diff": diff,
+                "gmres_cycles": cycles, "gmres_ms_per_cycle": 1e3 * t_g / max(cycles, 1),
+                "gmres_rel_residual": float(res.residual / torch.linalg.vector_norm(bv)),
+                "gmres_host_lstsq_ms": 1e3 * t_l})
+    check("nonlinear_f64:gmres_vs_cg", diff <= 1e-9 and rg.converged
+          and abs(rf.iters - rg.iters) <= 1, value=diff, iters=(rg.iters, rf.iters),
+          want="<= 1e-9, iterations within one")
+    emit(row)
 
 
 def main():
@@ -661,9 +923,15 @@ def main():
             poisson, {"m128": sp, "m256": sp256}, {"m128": op128, "m256": op_full},
             {"m128": nnz, "m256": nnz256})
     phase_entry()
+    # ---- the nonlinear and transient path: Cahn-Hilliard conv-α, f32
+    phase_ch("ch64", 64, 3)
+    sp_ch, U_ch = phase_ch("ch128", 128, 3)
+    with counted("nonlinear_f64"):
+        phase_nonlinear_f64()
     emit({"phase": "launches", **PHASE_LAUNCHES})
     # each kernel is launched on the assembled path and on the new paths
-    for kind, phases in (("full", ("m128", "m256", "m128_refine", "pointwise", "entry")),
+    for kind, phases in (("full", ("m128", "m256", "m128_refine", "pointwise", "entry", "ch64",
+                                   "ch128", "nonlinear_f64")),
                          ("sym", ("m256", "m256_refine"))):
         for ph in phases:
             check(f"launches:{kind}:{ph}", PHASE_LAUNCHES[ph][kind] > 0,
@@ -681,21 +949,39 @@ def main():
         check(f"{shape}:true_rel_residual", q["true_rel_residual"] <= lim,
               value=q["true_rel_residual"], want=f"<= {RESIDUAL_OVER_FLOOR:g} x floor {lim:.3e}")
 
+    # the ch128 Jacobian at the final state: its assembly timed on a
+    # second call, its planes the periodic row of the kernel table
+    from petiga_tpu_torch.models import cahnhilliard as ch
+
+    t_jac = []
+    for _ in range(2):
+        op_ch = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        op_ch = ch_jacobian(ch, sp_ch, U_ch, CH_RUN["dt"])
+        t_jac.append(sync_s(t0))
+    nnz_ch = sp_ch.nnodes * 125
+    emit({"phase": "ch128_jacobian", "assembly_s": t_jac[-1], "assembly_first_s": t_jac[0],
+          "assembly_Mnnz_s": nnz_ch / t_jac[-1] / 1e6, "planes": op_ch.nplanes,
+          "next": op_ch.next, "plane_GB": op_ch.plane_bytes / 1e9})
+    del U_ch
+
     # -------- kernels beside their plain versions, bounds, library call
     kernels = []
     library_ms = {}  # by shape: the symmetric row is held to the full matrix's CSR
+    structural = {"m128": nnz, "m256": nnz256, "ch128": nnz_ch}
     for name, op, shape, replaces in (
         ("stencil_spmv_full", op128, "m128", f"{PALLAS}:303"),
         ("stencil_spmv_full", op_full, "m256", f"{PALLAS}:392"),
         ("stencil_spmv_sym", op_sym, "m256", f"{PALLAS}:530"),
+        ("stencil_spmv_full", op_ch, "ch128", f"{PALLAS}:303"),
     ):
         sym = op.kind == "sym"
         xb = op.pack_vec(probe if shape == "m256" else torch.randn(
             op.st.nnodes, 1, device="cuda", generator=torch.Generator("cuda").manual_seed(2)))
         err, rel_err = kernel_vs_plain(op, xb)
         if not sym:
-            library_ms[shape] = library_csr_ms(op, xb, shape,
-                                               {"m128": nnz, "m256": nnz256}[shape])
+            library_ms[shape] = library_csr_ms(op, xb, shape, structural[shape])
         yb = torch.zeros_like(xb)
         plain = spmv._spmv_sym_plain if sym else spmv._spmv_full_plain
         shifts = op.shifts_u if sym else op.shifts
@@ -708,12 +994,15 @@ def main():
             runs["plain_ms"].append(time_ms(lambda: plain(op.DT, xb, shifts, op.G, yb),
                                             reps=20))
         ms, plain_ms = min(runs["ms"]), min(runs["plain_ms"])
-        gbps = op.plane_bytes / (ms * 1e-3) / 1e9
-        # the least time the card could take: planes and x read once, y
-        # written once, against 2 operations per stored nonzero (twice
-        # that for the symmetric kernel's mirror term)
-        nbytes = op.plane_bytes + 2 * xb.numel() * xb.element_size()
-        flops = 2 * op.nplanes * op.next * (2 if sym else 1)
+        # the least time the card could take: the planes' node columns and
+        # x read once, y written once (a periodic layout's halo columns
+        # hold zeros the product does not need), against 2 operations per
+        # stored nonzero (twice that for the symmetric kernel's mirror term)
+        isz, nn = op.DT.element_size(), op.st.nnodes
+        need = op.nplanes * nn * isz
+        gbps = need / (ms * 1e-3) / 1e9
+        nbytes = need + 2 * nn * op.dof * isz
+        flops = 2 * op.nplanes * nn * (2 if sym else 1)
         t_bytes = 1e3 * nbytes / HBM_BYTES_S
         t_ops = 1e3 * flops / PEAK_FLOP_S[op.DT.dtype]
         row = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
@@ -723,7 +1012,8 @@ def main():
                "library_ms": library_ms[shape],
                "shape": shape, "rel_err": rel_err, "plane_GB_s": gbps,
                "plane_roofline_frac": gbps / 3350.0,
-               "plane_bound_ms": 1e3 * op.plane_bytes / HBM_BYTES_S,
+               "plane_bound_ms": 1e3 * need / HBM_BYTES_S,
+               "planes_needed_GB": need / 1e9, "planes_streamed_GB": op.plane_bytes / 1e9,
                "launches_by_phase": {ph: v["sym" if sym else "full"]
                                      for ph, v in PHASE_LAUNCHES.items()}}
         emit({"phase": "timing", **row, "ms_runs": runs["ms"],
@@ -738,7 +1028,7 @@ def main():
     # residual read
     for shape, op, b in (("m128-full", op128, b128), ("m256-sym", op_sym, b256)):
         emit({"phase": "cg_sync", "shape": shape, **cg_sync_cost(poisson, op, b)})
-    del op_full, op_sym, op128, op, xb, yb
+    del op_full, op_sym, op128, op_ch, op, xb, yb
 
     # --------- f64 assembled solves; the refined solutions held to them
     l2_f64 = phase_f64(poisson)

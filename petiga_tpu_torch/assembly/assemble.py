@@ -18,9 +18,12 @@ to the node's element multiplicity (each element's FixSystem adds 1), the
 right-hand side lifted by the unfixed operator (``b -= A (m∘v)``, one
 matvec) and fixed rows set to ``mult · v``.
 
-Not ported yet (they raise ``NotImplementedError``):
-``assemble_function``, ``assemble_jacobian`` (ROADMAP Queue 1 item 10)
-and ``assemble_separable_planes`` (item 12).
+Nonlinear residuals (``assemble_function``) keep the reference's
+fix-value semantics; their Jacobians (``assemble_jacobian``) are
+forward-mode AD of the element residual (``torch.func.jvp``, batched over
+the element's local unknowns with ``torch.func.vmap``), or a hand-written
+``jacobian=`` form.  Not ported yet: ``assemble_separable_planes``
+(ROADMAP Queue 1 item 12), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -510,16 +513,194 @@ def assemble_matrix(space, matform, ctx=None, *, order=None, chunk=None,
     return A
 
 
-def assemble_function(space, function, U, ctx=None, **kw):
-    raise NotImplementedError(
-        "assemble_function is not ported yet (ROADMAP Queue 1 item 10)"
-    )
+def _call_function(function, pt, ue, aux_e, ctx):
+    """Call a residual form, passing per-element auxiliary closures (time
+    integrator states U0/V0/..., each (nen, c)) when present."""
+    if aux_e is None:
+        return function(pt, ue, ctx)
+    return function(pt, ue, aux_e, ctx)
 
 
-def assemble_jacobian(space, function, U, ctx=None, **kw):
-    raise NotImplementedError(
-        "assemble_jacobian is not ported yet (ROADMAP Queue 1 item 10)"
-    )
+def _element_residual(space, function, ctx, pb, Ue, m, v, uorig, aux_e=None):
+    """Residual (B, nen·dof) of one element batch with Dirichlet
+    semantics (FixValues + FixFunction): fixed coefficients are
+    overwritten with their boundary values before evaluation; fixed
+    residual rows become ``uorig - v``.  Written without in-place
+    updates, so it runs under ``torch.func`` transforms."""
+    dt = space.dtype
+    nen, dof = space.nen, space.dof
+    B = Ue.shape[0]
+    Uf = torch.where(m.reshape(B, nen, dof) > 0, v.reshape(B, nen, dof), Ue)
+
+    def one(pt, ue, ax):
+        return _normalize_F(_call_function(function, pt, ue, ax, ctx), nen, dof, dt)
+
+    def body(Ra, pt, w):
+        return Ra + w[:, None] * _vmap(one, pt, Uf, aux_e)
+
+    Re = _scan_points(pb, body, torch.zeros((B, nen * dof), dtype=dt, device=Ue.device))
+    return Re * (1.0 - m) + m * (uorig - v)
+
+
+def _gather_aux(space, aux, emap):
+    if aux is None:
+        return None
+    return {k: v.reshape(space.nnodes, -1)[emap] for k, v in aux.items()}
+
+
+def _scatter_blocks(space, chunk, blocks, out):
+    """Accumulate per-chunk element data into ``out``, in place.
+
+    ``blocks(ids) -> (E, emap)`` gives element vectors ``(B, nen, dof)``
+    (``out`` (nnodes, dof)) or element matrices ``(B, nen, nen, dof,
+    dof)`` (``out`` (nnodes·K, dof, dof)).  Regular spaces take the
+    shifted slice adds of :mod:`.fastpath` over whole slabs, in a fixed
+    order (deterministic on the card); others ``index_add_``."""
+    matrix = out.dim() == 3
+    if fastpath.is_regular(space):
+        chunk_sz = fastpath.slab_chunk(space, min(space.nel, 8192) if chunk is None else chunk)
+        kz = chunk_sz // (space.nel // space.elem_shape[-1])
+        N_rev = tuple(space.node_shape[::-1])
+        grid = out.view(N_rev + ((stencil_of(space).K,) if matrix else ()) + out.shape[1:])
+        acc = fastpath.accumulate_matrix if matrix else fastpath.accumulate_vector
+        for c, ids in enumerate(_chunks(space, chunk_sz)):
+            acc(space, grid, blocks(ids)[0], c * kz)
+    else:
+        scatter = _scatter_matrix if matrix else _scatter_vector
+        for ids in _chunks(space, chunk):
+            E, emap = blocks(ids)
+            scatter(space, out, E, emap)
+    return out
+
+
+def _element_batch(space, function, ctx, ids, order, face, aux):
+    """An element batch's tables and its residual as a function of the
+    element coefficients: ``(res, emap, (pb, m, v, aux_e))`` with
+    ``res(Ue (B, nen, dof)) -> (B, nen·dof)``.  Boundary forms (``face``)
+    only add to free rows, so their fixed rows are zero."""
+    pb = tabulate_elements(space, ids, order=order, face=face)
+    emap = space.device_emap(ids)
+    m, v = _fix_arrays(space, emap)
+    aux_e = _gather_aux(space, aux, emap)
+
+    def res(ue):
+        uorig = v if face is not None else ue.reshape(m.shape)
+        Re = _element_residual(space, function, ctx, pb, ue, m, v, uorig, aux_e)
+        return Re * (1.0 - m) if face is not None else Re
+
+    return res, emap, (pb, m, v, aux_e)
+
+
+def _residual_blocks(space, function, U, ctx, aux, order, face=None, tangent=None):
+    """``blocks(ids)`` for :func:`_scatter_blocks`: element residuals of
+    ``U`` — or, with ``tangent``, their directional derivatives along
+    ``tangent`` (``torch.func.jvp``; the global scatter is linear, so
+    this is the derivative of the assembled residual)."""
+    def blocks(ids):
+        res, emap, _ = _element_batch(space, function, ctx, ids, order, face, aux)
+        if tangent is None:
+            Re = res(U[emap])
+        else:
+            _, Re = torch.func.jvp(res, (U[emap],), (tangent[emap],))
+        return Re.reshape(emap.shape[0], space.nen, space.dof), emap
+
+    return blocks
+
+
+def _assemble_residual(space, function, U, ctx, aux, order, chunk, boundary, tangent=None):
+    U = U.reshape(space.nnodes, space.dof)
+    if tangent is not None:
+        tangent = tangent.reshape(U.shape)
+    F = torch.zeros((space.nnodes, space.dof), dtype=space.dtype, device=space.device)
+    _scatter_blocks(space, chunk, _residual_blocks(space, function, U, ctx, aux, order,
+                                                   tangent=tangent), F)
+    if boundary is not None:
+        for d, s in _faces_to_visit(space):
+            fids = torch.as_tensor(_face_elements(space, d, s), device=space.device)
+            E, emap = _residual_blocks(space, boundary, U, ctx, aux, order, face=(d, s),
+                                       tangent=tangent)(fids)
+            _scatter_vector(space, F, E, emap)
+    return F
+
+
+def assemble_function(space, function, U, ctx=None, *, aux=None, order=None,
+                      chunk=None, boundary=None):
+    """Assemble the residual F(U) (IGAComputeFunction).
+
+    ``function(pt, Ue, ctx) -> R`` reshapeable to (nen*dof) with Ue the
+    element coefficients (nen, dof).  With ``aux`` (dict of global
+    (nnodes, c) vectors) the signature is ``function(pt, Ue, aux_e, ctx)``
+    with aux_e holding (nen, c) element closures — the mechanism behind
+    the reference's IFunction/I2Function/IEFunction multi-state forms.
+    Dirichlet rows hold ``u - v``; nodal fluxes are subtracted on free
+    rows.  Returns (nnodes, dof)."""
+    F = _assemble_residual(space, function, U, ctx, aux, order, chunk, boundary)
+    flux = boundary_flux_vector(space)
+    if flux is not None:
+        mask, _ = space.tensor("dirichlet")
+        F = F - torch.where(mask, torch.zeros_like(flux), flux)
+    return F
+
+
+def _jacobian_blocks(space, function, U, ctx, jacobian, aux, order, face=None):
+    """``blocks(ids)`` for :func:`_scatter_blocks`: element Jacobians
+    (B, nen, nen, dof, dof) — forward-mode AD of the element residual
+    (one ``jvp`` per local unknown, batched by ``vmap``), or the
+    hand-written ``jacobian`` form with FixJacobian's rows and columns."""
+    nen, dof, dt = space.nen, space.dof, space.dtype
+    n = nen * dof
+
+    def blocks(ids):
+        res, emap, (pb, m, v, aux_e) = _element_batch(space, function, ctx, ids, order, face,
+                                                      aux)
+        B = ids.shape[0]
+        Ue = U[emap]
+        if jacobian is not None:
+            Uf = torch.where(m.reshape(B, nen, dof) > 0, v.reshape(B, nen, dof), Ue)
+
+            def one(pt, ue, ax):
+                return _normalize_K(_call_function(jacobian, pt, ue, ax, ctx), nen, dof, dt)
+
+            def body(Ka, pt, w):
+                return Ka + w[:, None, None] * _vmap(one, pt, Uf, aux_e)
+
+            Je = _scan_points(pb, body, torch.zeros((B, n, n), dtype=dt, device=Ue.device))
+            keep = 1.0 - m
+            Je = Je * keep[:, :, None] * keep[:, None, :]
+            if face is None:
+                Je = Je + torch.diag_embed(m)
+        else:
+            basis = torch.eye(n, dtype=dt, device=Ue.device).reshape(n, 1, nen, dof)
+
+            def column(t):
+                return torch.func.jvp(res, (Ue,), (t.expand(B, nen, dof),))[1]
+
+            Je = torch.func.vmap(column)(basis).permute(1, 2, 0)  # (B, row, col)
+        Je = Je.reshape(B, nen, dof, nen, dof).permute(0, 1, 3, 2, 4)
+        return Je, emap
+
+    return blocks
+
+
+def assemble_jacobian(space, function, U, ctx=None, *, jacobian=None, aux=None,
+                      order=None, chunk=None, boundary=None):
+    """Assemble J = dF/dU (IGAComputeJacobian) by forward-mode AD of the
+    element residual; ``jacobian(pt, Ue, ctx) -> K`` replaces the AD when
+    given.  Returns a node-major :class:`StencilMatrix`, whose
+    ``fast_operator()`` is the CUDA kernel operator."""
+    st = stencil_of(space)
+    dof = space.dof
+    U = U.reshape(space.nnodes, dof)
+    A_data = torch.zeros((st.nnodes * st.K, dof, dof), dtype=space.dtype, device=space.device)
+    _scatter_blocks(space, chunk, _jacobian_blocks(space, function, U, ctx, jacobian, aux, order),
+                    A_data)
+    if boundary is not None:
+        for d, s in _faces_to_visit(space):
+            fids = torch.as_tensor(_face_elements(space, d, s), device=space.device)
+            Je, emap = _jacobian_blocks(space, boundary, U, ctx, None, aux, order,
+                                        face=(d, s))(fids)
+            _scatter_matrix(space, A_data, Je, emap)
+    return StencilMatrix(st, A_data.reshape(st.nnodes, st.K, dof, dof))
 
 
 # ----------------------------------------------------------- functionals

@@ -1,27 +1,44 @@
-"""Coefficient-form plane assembly, constant-coefficient route (port of
-:mod:`petiga_tpu.assembly.convform`).
+"""Coefficient-form assembly: the generic assembly engine as
+convolutions (port of :mod:`petiga_tpu.assembly.convform`).
 
-A second-order bilinear form ``K_ab = Σ_q w_q Σ_ij C_ij D_i N_a D_j N_b``
-with spatially constant channels ``C_ij`` on the identity map factorizes
-EXACTLY over the axes: the dim-D stencil planes are sums of per-axis
-outer products of assembled 1-D stencil matrices,
+A second-order bilinear form ``K_ab = Σ_q w_q Σ_ij C_ij(x_q) D_i N_a D_j
+N_b`` (channels ``(i, j)``: 0 = value, ``i`` = d/dx_{i-1}, or a tuple
+``(d1, d2)`` for the second derivative ∂²/∂x_{d1}∂x_{d2}) is assembled
+straight into the kernel's slot-major planes
+(:class:`~petiga_tpu_torch.sparse.spmv.StencilOperator`) by one of two
+routes:
 
-    planes[s] = Σ_ch C_ch · Π_d A_d^{(o_i, o_j)}[n_d, s_d],
+* spatially constant channels factorize EXACTLY over the axes: the
+  planes are sums of per-axis outer products of assembled 1-D stencil
+  matrices, ``planes[s] = Σ_ch C_ch · Π_d A_d^{(o_i, o_j)}[n_d, s_d]``,
+  written at store speed in chunks of the slowest axis;
+* variable channels — functions of the point, or of state ``fields``
+  evaluated sum-factorized on the fine quadrature grid — become one
+  convolution over the element grid per box of elements that share one
+  basis-table type: ``planes[n, s] = Σ_a Σ_k W[n - a, k] Kc[k, a, s]``
+  with ``W[e, (q, ch)] = C_ch(x_{e,q})`` and ``Kc`` a static
+  ``(p+1)^dim``-tap kernel built from the 1-D tables, computed as one
+  GEMM per tap (cuBLAS on the card, TF32 off; see :func:`_conv`).  Open knot vectors give at most ``3^dim`` such boxes
+  (the interior block, faces, edges, corners); boxes under ``conv_min``
+  elements take the generic quadrature path with box-local shift
+  accumulation.  Periodic unit-step axes have one box, and its node
+  window's overhang folds back circularly into the interior of the
+  extended plane layout (whose periodic halo columns stay zero).
 
-so the matrix is written at store speed, straight into the kernel's
-slot-major layout (:class:`~petiga_tpu_torch.sparse.spmv.StencilOperator`),
-in chunks of the slowest axis — never a second copy of the planes.  The
-load vector ``b_a = ∫ f N_a`` is sum-factorized on the fine quadrature
-grid, ``b = Bᵀ(w·f)`` with the per-axis basis matrices ``B_d``, in
-chunks of the slowest axis.
+:func:`assemble_residual_conv` is the same machinery for nonlinear
+residuals with derivative TEST channels, ``R_a = Σ_α ∫ D^α N_a f_α``.
+The load vector ``b_a = ∫ f N_a`` is sum-factorized on the fine
+quadrature grid, ``b = Bᵀ(w·f)``, open or periodic.
 
-The variable-coefficient convolution, state ``fields``, periodic axes,
-second-derivative channels and dof > 1 are not ported yet and raise
+The port caches only static tables per space (conv kernels, fine basis
+matrices, box lists), never anything that depends on ``ctx`` or on the
+field values.  Mapped geometry, rational weights and dof > 1 raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Callable, Optional
 
@@ -29,21 +46,32 @@ import numpy as np
 import torch
 
 from . import fastpath
-from .assemble import dirichlet_post_fix, stencil_of
-from ..sparse.spmv import StencilOperator
+from .assemble import _add_flux, _make_element_KF, dirichlet_post_fix, stencil_of
+from .tabulation import tabulate_elements
+from ..sparse.spmv import StencilOperator, ext_shape
 
 __all__ = [
+    "coefficient_pointwise_form",
     "poisson_coefficients",
     "assemble_coefficient_planes",
     "assemble_load_vector",
+    "assemble_residual_conv",
 ]
 
 # Byte budgets of one slowest-axis chunk: the per-channel plane temporaries
-# of the outer-product write, and the fine-quadrature-grid temporaries of
-# the load vector and the error functional.  The chunk counts follow from
-# the sizes, so the full 256³ system is never held twice.
+# of the outer-product write, the fine-quadrature-grid temporaries of the
+# load vector and the error functional, and the conv input (point
+# coordinates, field values, coefficient channels and their conv layout).
+# The chunk counts follow from the sizes, so the full 256³ system is never
+# held twice.
 _CHUNK_BYTES = 2**26
 _FINE_CHUNK_BYTES = 2**28
+_CONV_CHUNK_BYTES = 2**31
+# Elements per generic (edge/corner) box.
+_SHELL_CHUNK = 32768
+
+
+# ------------------------------------------------------------ coefficient API
 
 
 def poisson_coefficients(x, ctx):
@@ -60,11 +88,207 @@ def poisson_coefficients(x, ctx):
 
 def _chan_orders(idx, dim):
     """Per-axis derivative orders of a channel index: ``0`` = value,
-    ``i`` = d/dx_{i-1}."""
-    return tuple(int(idx == d + 1) for d in range(dim))
+    ``i`` = d/dx_{i-1}, a tuple of axis ids = the mixed derivative over
+    those axes."""
+    o = [0] * dim
+    if isinstance(idx, tuple):
+        for d in idx:
+            o[d] += 1
+    elif idx > 0:
+        o[idx - 1] = 1
+    return tuple(o)
 
 
-# -------------------------------------------------------- per-axis tables
+def _chan_total(idx):
+    return len(idx) if isinstance(idx, tuple) else (0 if idx == 0 else 1)
+
+
+def _one_key(i):
+    return (_chan_total(i), i if isinstance(i, tuple) else (i,))
+
+
+def _chan_key(ij):
+    """Deterministic sort key over mixed int/tuple channel indices."""
+    return (_one_key(ij[0]), _one_key(ij[1]))
+
+
+def _check_idx(idx, dim):
+    if isinstance(idx, tuple):
+        return len(idx) <= 2 and all(0 <= d < dim for d in idx)
+    return 0 <= idx <= dim
+
+
+def _chan_D(shape, idx):
+    """Basis factor of a channel index from the tabulated shape leaves
+    ``shape = (N, dN, d²N, ...)`` (leading axes (…, Q, nen))."""
+    if isinstance(idx, tuple):
+        d1, d2 = idx
+        return shape[2][..., d1, d2]
+    if idx == 0:
+        return shape[0]
+    return shape[1][..., idx - 1]
+
+
+def _value_shape(v):
+    return tuple(v.shape) if torch.is_tensor(v) else np.shape(v)
+
+
+def _as(v, dtype, device):
+    if torch.is_tensor(v):
+        return v.to(dtype)
+    return torch.tensor(v, dtype=dtype, device=device)
+
+
+def coefficient_pointwise_form(coef: Callable, forcing: Optional[Callable] = None):
+    """The pointwise q-batched form equivalent to a coefficient spec:
+    ``K_ab = Σ_q w_q Σ_ij C_ij D_i N_a D_j N_b`` (and the load ``F_a =
+    Σ_q w_q f N_a`` with ``forcing(x, ctx) -> f``), for
+    :func:`~petiga_tpu_torch.assembly.assemble.assemble_system` and
+    friends.  dof = 1."""
+
+    def form(pt, w, ctx):
+        X = pt.x  # (Q, nsd)
+        dt = pt.shape0.dtype
+        nen = pt.shape0.shape[-1]
+        shapes = (pt.shape0, pt.shape1, pt.shape2)
+        K = None
+        for (i, j), c in coef(X, ctx).items():
+            wc = w * torch.broadcast_to(_as(c, dt, w.device), w.shape)
+            term = torch.einsum("q,qa,qb->ab", wc, _chan_D(shapes, i), _chan_D(shapes, j))
+            K = term if K is None else K + term
+        if forcing is None:
+            Fv = torch.zeros(nen, dtype=dt, device=w.device)
+        else:
+            f = torch.broadcast_to(_as(forcing(X, ctx), dt, w.device), w.shape)
+            Fv = torch.einsum("q,qa->a", w * f, pt.shape0)
+        return K, Fv
+
+    form.qbatched = True
+    return form
+
+
+# ------------------------------------------------------------- static tables
+
+
+def _cached(space, key, build):
+    """Static per-space table under ``key`` in the space's tensor cache
+    (cleared with it when the space's boundary data change)."""
+    cache = space._tensor_cache
+    if key not in cache:
+        cache[key] = build()
+    return cache[key]
+
+
+def _axis_interior_run(t):
+    """Longest contiguous run of elements sharing the modal (interior)
+    1-D basis table on one axis -> (lo, hi).  Boundary-layer elements of
+    an open knot vector have modified basis values and fall outside;
+    interior rows differ only by evaluation jitter (~1e-15 relative)."""
+    nel = t.nel
+    rows = np.concatenate(
+        [t.value[:, :, :2, :].reshape(nel, -1), t.weight, t.detJac[:, None]], axis=1
+    )
+    scale = np.max(np.abs(rows)) or 1.0
+    mid = rows[nel // 2]  # middle element: interior whenever one exists
+    close = np.all(np.abs(rows - mid) <= 1e-8 * scale, axis=1)
+    best = (0, 0)
+    i = 0
+    while i < nel:
+        if close[i]:
+            j = i
+            while j < nel and close[j]:
+                j += 1
+            if j - i > best[1] - best[0]:
+                best = (i, j)
+            i = j
+        else:
+            i += 1
+    return best
+
+
+def _axis_options(space):
+    """Per-axis block options: the interior run plus one single-element
+    layer per boundary element, as (start, stop, representative)."""
+    opts = []
+    for t in space.tabs:
+        lo, hi = _axis_interior_run(t)
+        o = [(lo, hi, lo)] if hi > lo else []
+        o += [(l, l + 1, l) for l in range(0, lo)]
+        o += [(l, l + 1, l) for l in range(hi, t.nel)]
+        opts.append(o)
+    return opts
+
+
+def _combo_boxes(space):
+    """All type-combo boxes (blo, bext, reps) covering the element grid
+    disjointly: each box shares one basis-table type per axis."""
+    out = []
+    for sel in itertools.product(*_axis_options(space)):
+        bext = tuple(s[1] - s[0] for s in sel)
+        if all(e > 0 for e in bext):
+            out.append((tuple(s[0] for s in sel), bext, tuple(s[2] for s in sel)))
+    return out
+
+
+def _split_box(lo, ext, max_elems):
+    """Split a box along its largest axis until each part has at most
+    ``max_elems`` elements."""
+    vol = int(np.prod(ext))
+    if vol <= max_elems:
+        return [(tuple(lo), tuple(ext))]
+    d = int(np.argmax(ext))
+    nparts = min(-(-vol // max_elems), ext[d])
+    step = -(-ext[d] // nparts)
+    out = []
+    s = 0
+    while s < ext[d]:
+        e = min(step, ext[d] - s)
+        nlo, nex = list(lo), list(ext)
+        nlo[d] += s
+        nex[d] = e
+        out.extend(_split_box(nlo, nex, max_elems))
+        s += e
+    return out
+
+
+def _box_ids(space, lo, ext):
+    """Flat element ids (axis-0 fastest) of a box, in box-grid order, on
+    the space's device."""
+    eshape = space.elem_shape
+    dim = len(eshape)
+    idx = np.meshgrid(*[np.arange(lo[d], lo[d] + ext[d]) for d in range(dim)][::-1],
+                      indexing="ij")[::-1]
+    flat = np.zeros(tuple(np.array(ext)[::-1]), dtype=np.int64)
+    stride = 1
+    for d in range(dim):
+        flat = flat + idx[d] * stride
+        stride *= eshape[d]
+    return torch.as_tensor(flat.reshape(-1), device=space.device)
+
+
+def _boxes(space, conv_min):
+    """(conv boxes, generic boxes): combo boxes of at least ``conv_min``
+    elements convolve; the rest are split into generic boxes."""
+    def build():
+        conv, gen = [], []
+        for blo, bext, reps in _combo_boxes(space):
+            if int(np.prod(bext)) >= conv_min:
+                conv.append((blo, bext, reps))
+            else:
+                gen.extend(_split_box(blo, bext, _SHELL_CHUNK))
+        return conv, gen
+
+    return _cached(space, ("conv_boxes", conv_min), build)
+
+
+def _box_node_slices(space, lo, ext):
+    """Node region [lo, lo + ext + p) per axis, grid (reversed) order."""
+    dim = space.dim
+    nshape = space.nen_shape
+    return tuple(
+        slice(lo[dim - 1 - g], lo[dim - 1 - g] + ext[dim - 1 - g] + nshape[dim - 1 - g] - 1)
+        for g in range(dim)
+    )
 
 
 def _axis_factor_mats(space, dtype):
@@ -103,23 +327,26 @@ def _axis_factor_mats(space, dtype):
 
 def _fine_basis_mats(space, dtype):
     """Per-axis dense (F_d, N_d) basis value/derivative matrices on the
-    fine quadrature grid (F_d = nel_d·nq_d rows, p+1 nonzeros per row)."""
-    mats = []
-    for d in range(space.dim):
-        t = space.tabs[d]
-        N = space.node_shape[d]
-        Bs = [np.zeros((t.nel * t.nqp, N)) for _ in range(3)]
-        for e in range(t.nel):
-            o = int(t.offset[e])
-            cols = np.arange(o, o + t.p + 1)
-            if space.periodic[d]:
-                cols = cols % N
-            for k in range(3):
-                Bs[k][e * t.nqp:(e + 1) * t.nqp, cols] = t.value[e, :, k, :]
-        mats.append(
-            tuple(torch.as_tensor(B, dtype=dtype, device=space.device) for B in Bs)
-        )
-    return mats
+    fine quadrature grid (F_d = nel_d·nq_d rows, p+1 nonzeros per row;
+    periodic columns wrap)."""
+    def build():
+        mats = []
+        for d in range(space.dim):
+            t = space.tabs[d]
+            N = space.node_shape[d]
+            Bs = [np.zeros((t.nel * t.nqp, N)) for _ in range(3)]
+            for e in range(t.nel):
+                o = int(t.offset[e])
+                cols = np.arange(o, o + t.p + 1)
+                if space.periodic[d]:
+                    cols = cols % N
+                for k in range(3):
+                    Bs[k][e * t.nqp:(e + 1) * t.nqp, cols] = t.value[e, :, k, :]
+            mats.append(tuple(torch.as_tensor(B, dtype=dtype, device=space.device)
+                              for B in Bs))
+        return mats
+
+    return _cached(space, ("fine_basis_mats", dtype), build)
 
 
 def _fine_points(space, z0, z1):
@@ -151,6 +378,296 @@ def _fine_weights(space, z0, z1):
     return w
 
 
+def _kernel_factors(space, reps):
+    """Per axis (nq_d, NDER, nen_d) tables ``w·detJac·D^k N`` of the
+    representative elements ``reps[d]`` (the per-axis quadrature weights
+    ride in the kernel, so W carries only the pointwise coefficients)."""
+    out = []
+    for d in range(space.dim):
+        t = space.tabs[d]
+        lo = reps[d]
+        wd = t.weight[lo] * t.detJac[lo]  # (nq,)
+        out.append((t.value[lo, :, :3, :], wd))
+    return out
+
+
+def _conv_kernel(space, chlist, dtype, reps, slots):
+    """Static conv weight ``(Keff, Q·nch, taps_rev...)`` from the 1-D
+    tables of the representative elements ``reps[d]``: input channel
+    ``q·nch + ch`` (q-major, matching :func:`_space_to_depth`), output
+    channel = slot, taps pre-flipped because :func:`_conv` correlates
+    (the reference's layout for ``lax.conv_general_dilated``)."""
+    def build():
+        dim = space.dim
+        p = space.degrees
+        nq = [space.tabs[d].nqp for d in range(dim)]
+        nen_d = [p[d] + 1 for d in range(dim)]
+        sK = [2 * p[d] + 1 for d in range(dim)]
+        G = []
+        for d, (V, wd) in enumerate(_kernel_factors(space, reps)):
+            g = np.zeros((3, 3, nq[d], nen_d[d], sK[d]))
+            for a in range(nen_d[d]):
+                for s in range(sK[d]):
+                    b = a + s - p[d]
+                    if 0 <= b <= p[d]:
+                        for da in range(3):
+                            for db in range(3):
+                                g[da, db, :, a, s] = V[:, da, a] * V[:, db, b] * wd
+            G.append(g)
+        kers = []
+        for (i, j) in chlist:
+            oi, oj = _chan_orders(i, dim), _chan_orders(j, dim)
+            k = np.ones(tuple(nq[::-1]) + tuple(nen_d[::-1]) + tuple(sK[::-1]))
+            for d in range(dim):
+                sh = [1] * (3 * dim)
+                gi = dim - 1 - d
+                sh[gi], sh[dim + gi], sh[2 * dim + gi] = nq[d], nen_d[d], sK[d]
+                k = k * G[d][oi[d], oj[d]].reshape(sh)
+            kers.append(k)
+        ker = np.stack(kers)  # (nch, q_rev..., a_rev..., s_rev...)
+        Q, K = int(np.prod(nq)), int(np.prod(sK))
+        ker = np.moveaxis(ker, 0, dim).reshape((Q * len(chlist),) + tuple(nen_d[::-1]) + (K,))
+        ker = np.flip(ker, axis=tuple(range(1, 1 + dim)))  # correlation -> convolution
+        ker = np.moveaxis(ker[..., list(slots)], -1, 0)  # (Keff, Q·nch, taps_rev...)
+        return torch.as_tensor(np.ascontiguousarray(ker), dtype=dtype, device=space.device)
+
+    return _cached(space, ("conv_kernel", tuple(chlist), dtype, reps, tuple(slots)), build)
+
+
+def _test_kernel(space, dtype, reps, chans):
+    """Stacked residual (test-side) weight ``(1, Q·nch, taps_rev...)``:
+    per channel α the per-axis product of ``w·detJac·D^{α_d}N`` tables of
+    the representative elements ``reps``; q-major, channel-minor."""
+    def build():
+        dim = space.dim
+        p = space.degrees
+        nq = [space.tabs[d].nqp for d in range(dim)]
+        nen_d = [p[d] + 1 for d in range(dim)]
+        Q = int(np.prod(nq))
+        fac = _kernel_factors(space, reps)
+        ks = []
+        for idx in chans:
+            ders = _chan_orders(idx, dim)
+            k = np.ones(tuple(nq[::-1]) + tuple(nen_d[::-1]))
+            for d, (V, wd) in enumerate(fac):
+                sh = [1] * (2 * dim)
+                gi = dim - 1 - d
+                sh[gi], sh[dim + gi] = nq[d], nen_d[d]
+                k = k * (V[:, ders[d], :] * wd[:, None]).reshape(sh)
+            ks.append(k.reshape((Q, 1) + tuple(nen_d[::-1])))
+        k = np.concatenate(ks, axis=1).reshape((1, Q * len(chans)) + tuple(nen_d[::-1]))
+        k = np.flip(k, axis=tuple(range(2, 2 + dim)))
+        return torch.as_tensor(np.ascontiguousarray(k), dtype=dtype, device=space.device)
+
+    return _cached(space, ("test_kernel", tuple(chans), dtype, reps), build)
+
+
+# ------------------------------------------------------ fine-grid evaluation
+
+
+def _fine_X(space, blo, bext):
+    """Quadrature-point coordinates of an element box on the fine tensor
+    grid (per-axis flat index ``e·nq + q``): shape (f_rev..., dim)."""
+    dim = space.dim
+    xs = []
+    for d in range(dim):
+        t = space.tabs[d]
+        a = torch.as_tensor(t.point.reshape(-1), dtype=space.dtype, device=space.device)
+        xs.append(a[blo[d] * t.nqp:(blo[d] + bext[d]) * t.nqp])
+    grids = torch.meshgrid(*xs[::-1], indexing="ij")
+    return torch.stack(grids[::-1], dim=-1)
+
+
+def _fine_field(space, mats, ders, G, blo, bext):
+    """A node-grid field ``G (N_rev...)`` on a box's fine grid with
+    per-axis derivative orders ``ders``: (f_rev...), sum-factorized one
+    axis at a time, the slowest first."""
+    dim = space.dim
+    out = G
+    for d in range(dim - 1, -1, -1):
+        nq = space.tabs[d].nqp
+        Bd = mats[d][ders[d]][blo[d] * nq:(blo[d] + bext[d]) * nq]
+        g = dim - 1 - d
+        out = torch.movedim(torch.tensordot(Bd, out, dims=([1], [g])), 0, g)
+    return out
+
+
+def _field_specs(fields):
+    """``fields`` -> sorted ((name, vector, order), ...), or None for no
+    fields; a bare vector means order 0."""
+    if fields is None:
+        return None
+    out = []
+    for k in sorted(fields):
+        v = fields[k]
+        vec, o = (v[0], int(v[1])) if isinstance(v, tuple) else (v, 0)
+        out.append((k, vec, o))
+    return tuple(out)
+
+
+def _field_count(specs, dim):
+    """Fine-grid field arrays the specs evaluate (values, gradients,
+    Hessians)."""
+    return sum(1 + dim * (o >= 1) + dim * dim * (o >= 2) for *_, o in specs or ())
+
+
+def _tab_order(max_order, specs):
+    return max((max_order,) + tuple(o for *_, o in specs or ()))
+
+
+def _field_probe(specs, dim, dtype, device):
+    fp = {}
+    for k, _, o in specs:
+        fp[k] = torch.zeros((1,), dtype=dtype, device=device)
+        if o >= 1:
+            fp[k + "_grad"] = torch.zeros((1, dim), dtype=dtype, device=device)
+        if o >= 2:
+            fp[k + "_hess"] = torch.zeros((1, dim, dim), dtype=dtype, device=device)
+    return fp
+
+
+def _fine_fields(space, specs, blo, bext):
+    """Point values of the state fields on a box's fine grid: ``name``,
+    ``name_grad`` (…, dim) and ``name_hess`` (…, dim, dim) up to each
+    field's order."""
+    dim = space.dim
+    mats = _fine_basis_mats(space, space.dtype)
+    N_rev = tuple(space.node_shape[::-1])
+    fe = {}
+    for k, vec, o in specs:
+        G = vec.reshape(N_rev).to(space.dtype)
+        memo = {}
+
+        def der(ders):
+            if ders not in memo:
+                memo[ders] = _fine_field(space, mats, ders, G, blo, bext)
+            return memo[ders]
+
+        def unit(*axes):
+            return tuple(sum(1 for a in axes if a == dd) for dd in range(dim))
+
+        fe[k] = der(unit())
+        if o >= 1:
+            fe[k + "_grad"] = torch.stack([der(unit(d)) for d in range(dim)], dim=-1)
+        if o >= 2:
+            fe[k + "_hess"] = torch.stack(
+                [torch.stack([der(unit(d1, d2)) for d2 in range(dim)], dim=-1)
+                 for d1 in range(dim)], dim=-2)
+    return fe
+
+
+def _element_fields(space, specs, pb, emap):
+    """Point values of the state fields on tabulated elements (the
+    generic boxes): (B, Q), (B, Q, dim), (B, Q, dim, dim)."""
+    fe = {}
+    for k, vec, o in specs:
+        Ue = vec.reshape(-1)[emap].to(space.dtype)  # (B, nen)
+        fe[k] = torch.einsum("bqn,bn->bq", pb.shape[0], Ue)
+        if o >= 1:
+            fe[k + "_grad"] = torch.einsum("bqnd,bn->bqd", pb.shape[1], Ue)
+        if o >= 2:
+            fe[k + "_hess"] = torch.einsum("bqnde,bn->bqde", pb.shape[2], Ue)
+    return fe
+
+
+def _space_to_depth(space, Fc, bext):
+    """(C, f_rev...) fine-grid channels -> (Q·C, E_rev...) conv input,
+    q-major and C-minor (matching :func:`_conv_kernel`)."""
+    dim = space.dim
+    shape = [Fc.shape[0]]
+    for g in range(dim):
+        shape += [bext[dim - 1 - g], space.tabs[dim - 1 - g].nqp]
+    perm = [2 + 2 * g for g in range(dim)] + [0] + [1 + 2 * g for g in range(dim)]
+    return Fc.reshape(shape).permute(perm).reshape((-1,) + tuple(bext[::-1]))
+
+
+def _conv(W, ker, p):
+    """One element-tap correlation of the conv input ``W (C_in, E_rev...)``
+    with ``ker (C_out, C_in, taps_rev...)`` padded by ``p``: ``(C_out,
+    (E + p)_rev...)``, the node window of the box.
+
+    Written as one GEMM per tap, ``(C_out × C_in) @ (C_in × E)``, added
+    into the tap's shifted output window (``W[e]`` lands at ``e + p -
+    t``), in a fixed order: deterministic, and rounded like a direct sum.
+    cuDNN's convolution of the same product (``conv3d``, deterministic or
+    not) rounds the f32 Cahn–Hilliard Jacobian an order of magnitude worse
+    on an H100 (``tests/test_torch_conv_rounding.py``, card only)."""
+    E = W.shape[1:]
+    pr = tuple(p[::-1])
+    out = torch.zeros((ker.shape[0],) + tuple(e + q for e, q in zip(E, pr)),
+                      dtype=W.dtype, device=W.device)
+    Wm = W.reshape(W.shape[0], -1)
+    for t in itertools.product(*[range(k) for k in ker.shape[2:]]):
+        Y = ker[(slice(None), slice(None)) + t] @ Wm
+        sl = tuple(slice(q - tt, q - tt + e) for q, tt, e in zip(pr, t, E))
+        out[(slice(None),) + sl] += Y.view((ker.shape[0],) + tuple(E))
+    return out
+
+
+def _fold_pieces(space, node_sl, lo_off):
+    """Split a node window into (dest, src) slice pieces: dest in the
+    target's coordinates (node + ``lo_off`` per grid axis), the overhang
+    on a periodic axis wrapped to the axis start (window length ≤ N + p
+    < 2N: at most one split per axis)."""
+    dim = space.dim
+    pieces = [((), ())]
+    for g, s in enumerate(node_sl):
+        N = space.node_shape[dim - 1 - g]
+        L, lo = s.stop - s.start, lo_off[g]
+        new = []
+        for dest, src in pieces:
+            if space.periodic[dim - 1 - g] and s.stop > N:
+                core = N - s.start
+                new.append((dest + (slice(lo + s.start, lo + N),), src + (slice(0, core),)))
+                new.append((dest + (slice(lo, lo + L - core),), src + (slice(core, L),)))
+            else:
+                new.append((dest + (slice(lo + s.start, lo + s.stop),), src + (slice(0, L),)))
+        pieces = new
+    return pieces
+
+
+def _add_folded(space, target, contrib, node_sl, lo_off, lead=1):
+    """``target[window] += contrib`` in place, wrap-folded on periodic
+    axes; the first ``lead`` axes of both are not spatial."""
+    head = (slice(None),) * lead
+    for dest, src in _fold_pieces(space, node_sl, lo_off):
+        target[head + dest] += contrib[head + src]
+
+
+def _zsplits(space, bext, per_point_bytes):
+    """Slowest-axis chunks (z0, ez) of a box so that one chunk's conv
+    input stays within ``_CONV_CHUNK_BYTES``."""
+    dim = space.dim
+    ez = bext[dim - 1]
+    if dim > 1:
+        layer = per_point_bytes * math.prod(
+            bext[d] * space.tabs[d].nqp for d in range(dim - 1)) * space.tabs[dim - 1].nqp
+        ez_c = max(1, min(ez, _CONV_CHUNK_BYTES // max(layer, 1)))
+    else:
+        ez_c = ez
+    return [(s, min(ez_c, ez - s)) for s in range(0, ez, ez_c)]
+
+
+def _conv_tasks(space, boxes, per_point_bytes):
+    """(blo, bext, reps) of every slowest-axis chunk of the conv boxes."""
+    dim = space.dim
+    out = []
+    for blo0, bext0, reps in boxes:
+        for zs, ez in _zsplits(space, bext0, per_point_bytes):
+            blo, bext = list(blo0), list(bext0)
+            blo[dim - 1] += zs
+            bext[dim - 1] = ez
+            out.append((tuple(blo), tuple(bext), reps))
+    return out
+
+
+def _window(space, blo, bext):
+    """Node window [blo, blo + bext + p) of a conv chunk, grid order."""
+    dim, p = space.dim, space.degrees
+    return tuple(slice(blo[dim - 1 - g], blo[dim - 1 - g] + bext[dim - 1 - g] + p[dim - 1 - g])
+                 for g in range(dim))
+
+
 # ----------------------------------------------------------- entry points
 
 
@@ -159,17 +676,19 @@ def _check_space(space, symmetric):
         raise ValueError("conv assembly requires a regular unit-step space")
     if symmetric and any(space.periodic):
         raise ValueError("symmetric conv assembly requires open axes")
-    if any(space.periodic):
-        raise NotImplementedError("periodic conv assembly (ROADMAP Queue 1 item 8.3)")
+    if space.has_geometry or space.is_rational:
+        raise NotImplementedError(
+            "conv assembly on mapped or rational geometry (ROADMAP Queue 1 item 8.6)")
     if space.dof != 1:
-        raise NotImplementedError("conv assembly for dof > 1 (ROADMAP Queue 1 item 8)")
+        raise NotImplementedError("conv assembly for dof > 1 (ROADMAP Queue 1 item 8.7)")
 
 
 def assemble_load_vector(space, forcing: Callable, ctx=None):
     """Load vector ``b_a = ∫ f N_a`` (no Dirichlet elimination) on the
-    identity map, dof = 1: ``b = Bᵀ(w·f)`` on the fine quadrature grid,
-    sum-factorized one axis at a time, in chunks of the slowest axis.
-    ``forcing(x, ctx)`` takes points ``(..., dim)``.  Returns (nnodes, 1)."""
+    identity map, dof = 1, open or periodic axes: ``b = Bᵀ(w·f)`` on the
+    fine quadrature grid, sum-factorized one axis at a time, in chunks of
+    the slowest axis.  ``forcing(x, ctx)`` takes points ``(..., dim)``.
+    Returns (nnodes, 1)."""
     _check_space(space, False)
     dim = space.dim
     B = [m[0] for m in _fine_basis_mats(space, space.dtype)]  # (F_d, N_d)
@@ -199,7 +718,8 @@ def assemble_load_vector(space, forcing: Callable, ctx=None):
 def _outer_planes(space, chlist, chv, slots):
     """(len(slots), next) planes: the channel-weighted outer products of
     the per-axis factor rows, written in chunks of the slowest axis
-    straight into one preallocated tensor.
+    straight into one preallocated tensor (its interior columns; the
+    periodic halo columns stay zero).
 
     The arithmetic follows the reference operation for operation
     (``((f_z·f_y)·f_x)`` per channel, times the channel value, channels
@@ -207,10 +727,12 @@ def _outer_planes(space, chlist, chv, slots):
     rounded exactly as the reference rounds them.  That matters: interior
     rows share one stencil, so its rounding acts as one systematic
     perturbation of every row."""
+    st = stencil_of(space)
     dim = space.dim
     dt = space.dtype
     p = space.degrees
     N_rev = tuple(space.node_shape[::-1])
+    Ne_rev = tuple(ext_shape(st)[::-1])
     Keff = len(slots)
     facs = _axis_factor_mats(space, dt)
     # per-axis slot components of the selected slots (axis-0 fastest)
@@ -231,8 +753,10 @@ def _outer_planes(space, chlist, chv, slots):
         val = torch.as_tensor(chv[(i, j)], dtype=dt, device=space.device)
         chans.append((val, rows))
 
-    P = torch.empty((Keff, math.prod(N_rev)), dtype=dt, device=space.device)
-    Pg = P.view((Keff,) + N_rev)
+    alloc = torch.zeros if any(space.periodic) else torch.empty
+    P = alloc((Keff, math.prod(Ne_rev)), dtype=dt, device=space.device)
+    interior = tuple(slice((ne - n) // 2, (ne - n) // 2 + n) for n, ne in zip(N_rev, Ne_rev))
+    Pg = P.view((Keff,) + Ne_rev)[(slice(None),) + interior]
     layer = Keff * math.prod(N_rev[1:]) * P.element_size()
     zc = max(1, min(N_rev[0], _CHUNK_BYTES // layer))
     term = None
@@ -258,6 +782,58 @@ def _outer_planes(space, chlist, chv, slots):
     return P
 
 
+def _gen_box_matrix(space, coef, ctx, specs, max_order, ids):
+    """Element matrices (B, nen, nen, 1, 1) of a generic box: the
+    synthesized pointwise form, or — with state fields — the coefficient
+    channels at tabulated points with the fields gathered per element."""
+    if specs is None:
+        element_KF = _make_element_KF(space, ctx, max_order, False)
+        return element_KF(ids, None, coefficient_pointwise_form(coef))[0]
+    dt = space.dtype
+    pb = tabulate_elements(space, ids, order=_tab_order(max_order, specs))
+    ch = coef(pb.x, ctx, _element_fields(space, specs, pb, space.device_emap(ids)))
+    Ke = None
+    for (i, j), v in ch.items():
+        wc = pb.weight * torch.broadcast_to(_as(v, dt, pb.weight.device), pb.weight.shape)
+        term = torch.einsum("bq,bqa,bqc->bac", wc, _chan_D(pb.shape, i), _chan_D(pb.shape, j))
+        Ke = term if Ke is None else Ke + term
+    return Ke[:, :, :, None, None]
+
+
+def _conv_planes(space, coef, ctx, specs, chlist, chv, is_const, max_order, slots,
+                 conv_min):
+    """(len(slots), next) planes of a variable-coefficient spec: one
+    convolution per conv-box chunk, generic boxes by shift accumulation,
+    both folded into the interior of the extended layout."""
+    st = stencil_of(space)
+    dim, dt, dev = space.dim, space.dtype, space.device
+    Ne = ext_shape(st)
+    los = tuple((ne - n) // 2 for n, ne in zip(space.node_shape, Ne))[::-1]
+    Keff = len(slots)
+    P = torch.zeros((Keff, math.prod(Ne)), dtype=dt, device=dev)
+    Pg = P.view((Keff,) + tuple(Ne[::-1]))
+    conv_boxes, gen_boxes = _boxes(space, conv_min)
+    per_point = (2 * len(chlist) + _field_count(specs, dim) + dim) * P.element_size()
+    for blo, bext, reps in _conv_tasks(space, conv_boxes, per_point):
+        X = _fine_X(space, blo, bext)
+        ch = (coef(X, ctx, _fine_fields(space, specs, blo, bext)) if specs is not None
+              else coef(X, ctx))
+        f_rev = X.shape[:-1]
+        Fc = torch.stack([torch.broadcast_to(_as(chv[c] if is_const[c] else ch[c], dt, dev),
+                                             f_rev) for c in chlist])
+        del ch, X
+        out = _conv(_space_to_depth(space, Fc, bext),
+                    _conv_kernel(space, chlist, dt, reps, slots), space.degrees)
+        del Fc
+        _add_folded(space, Pg, out, _window(space, blo, bext), los)
+    for blo, bext in gen_boxes:
+        Ke = _gen_box_matrix(space, coef, ctx, specs, max_order, _box_ids(space, blo, bext))
+        Gm, _ = fastpath.accumulate_box(space, bext, Ke=Ke)
+        contrib = torch.movedim(Gm.reshape(Gm.shape[:dim] + (st.K,)), dim, 0)
+        _add_folded(space, Pg, contrib[list(slots)], _box_node_slices(space, blo, bext), los)
+    return P
+
+
 def assemble_coefficient_planes(
     space,
     coef: Callable,
@@ -267,33 +843,48 @@ def assemble_coefficient_planes(
     symmetric: bool = False,
     apply_fix: bool = True,
     fields: Optional[dict] = None,
+    const_outer: bool = True,
+    conv_min: int = 2048,
 ):
-    """Assemble the system of a constant-coefficient bilinear form
+    """Assemble the system of a coefficient-form bilinear operator
     straight into kernel planes; returns ``(op, b)`` with ``op`` a
     :class:`StencilOperator` (kind ``"sym"`` when ``symmetric``: only the
-    ``Ku = (K+1)/2`` upper slots are built and stored) and ``b`` the
-    (nnodes, 1) load vector, Dirichlet-fixed when ``apply_fix``.
+    ``Ku = (K+1)/2`` upper slots are built and stored; open axes only)
+    and ``b`` the (nnodes, 1) load vector, Dirichlet-fixed when
+    ``apply_fix``, plus the nodal fluxes.
 
-    ``coef(x, ctx) -> {(i, j): value}`` with ``i, j in 0..dim`` (0 =
-    value channel, ``i`` = d/dx_{i-1}); every value must be a scalar."""
-    if fields is not None:
-        raise NotImplementedError("field coefficients (ROADMAP Queue 1 item 8.4)")
+    ``coef(x, ctx) -> {(i, j): value}`` with ``i, j`` channel indices
+    (0 = value, ``i`` = d/dx_{i-1}, ``(d1, d2)`` = ∂²/∂x_{d1}∂x_{d2});
+    values are scalars or tensors broadcastable against ``x[..., 0]``.
+    With ``fields`` — names mapped to node vectors ``(nnodes,)`` or to
+    ``(vector, order)`` — the signature is ``coef(x, ctx, fe)`` with
+    ``fe[name]``, ``fe[name + "_grad"]`` and ``fe[name + "_hess"]`` the
+    fields' point values up to their order; re-assembling with new field
+    values rebuilds no static table.
+
+    Spatially constant specs without fields take the exact outer-product
+    write unless ``const_outer`` is False; everything else convolves over
+    the type-combo boxes of at least ``conv_min`` elements and assembles
+    the rest generically."""
     _check_space(space, symmetric)
     st = stencil_of(space)
-    dim = space.dim
-    probe = coef(torch.zeros((1, dim), dtype=space.dtype, device=space.device), ctx)
-    for (i, j), v in probe.items():
-        if isinstance(i, tuple) or isinstance(j, tuple):
-            raise NotImplementedError(
-                "second-derivative channels (ROADMAP Queue 1 item 8.3)"
-            )
-        if np.ndim(v) != 0:
-            raise NotImplementedError(
-                "variable-coefficient conv assembly (ROADMAP Queue 1 item 8.2)"
-            )
-    chlist = sorted(probe)  # the reference's channel order: value first
+    dim, dt = space.dim, space.dtype
+    specs = _field_specs(fields)
+    x0 = torch.zeros((1, dim), dtype=dt, device=space.device)
+    probe = (coef(x0, ctx, _field_probe(specs, dim, dt, space.device)) if specs is not None
+             else coef(x0, ctx))
+    chlist = sorted(probe, key=_chan_key)
+    for i, j in chlist:
+        if not (_check_idx(i, dim) and _check_idx(j, dim)):
+            raise ValueError(f"channel {(i, j)} out of range")
+    max_order = max([1] + [max(_chan_total(i), _chan_total(j)) for i, j in chlist])
+    is_const = {c: _value_shape(probe[c]) == () for c in chlist}
     slots = tuple(range(st.diag_slot, st.K)) if symmetric else tuple(range(st.K))
-    P = _outer_planes(space, chlist, probe, slots)
+    if const_outer and specs is None and all(is_const.values()):
+        P = _outer_planes(space, chlist, probe, slots)
+    else:
+        P = _conv_planes(space, coef, ctx, specs, chlist, probe, is_const, max_order, slots,
+                         conv_min)
     if symmetric:
         op = StencilOperator.from_planes_symmetric(st, P)
     else:
@@ -301,7 +892,63 @@ def assemble_coefficient_planes(
     if forcing is not None:
         b = assemble_load_vector(space, forcing, ctx)
     else:
-        b = torch.zeros((st.nnodes, 1), dtype=space.dtype, device=space.device)
+        b = torch.zeros((st.nnodes, 1), dtype=dt, device=space.device)
     if apply_fix:
         op, b = dirichlet_post_fix(space, op, b)
-    return op, b
+    return op, _add_flux(space, b)
+
+
+def assemble_residual_conv(space, res_coef, ctx=None, *, fields=None, conv_min=2048):
+    """Residual / weighted-load assembly with derivative TEST channels
+    and state-field coefficients, one convolution per type-combo box:
+
+        R_a = Σ_α ∫ D^α N_a · f_α(x, state)
+
+    ``res_coef(x, ctx, fe) -> {α: value}`` with α a test-channel index
+    (``0`` value, ``1..dim`` first derivatives, ``(d1, d2)`` second
+    derivatives) and ``fe`` the state fields' point values as in
+    :func:`assemble_coefficient_planes`; without ``fields`` the signature
+    is ``res_coef(x, ctx)``.  Identity map, dof = 1, unit-step open or
+    periodic axes.  Returns a flat ``(nnodes, 1)`` vector with no
+    Dirichlet elimination."""
+    if not fastpath.is_unit_step(space):
+        raise ValueError("conv residual assembly requires unit-step axes")
+    if space.has_geometry or space.is_rational or space.dof != 1:
+        raise ValueError("conv residual assembly: identity map, dof=1")
+    dim, dt, dev = space.dim, space.dtype, space.device
+    specs = _field_specs(fields) if fields else None
+    x0 = torch.zeros((1, dim), dtype=dt, device=dev)
+    probe = (res_coef(x0, ctx, _field_probe(specs, dim, dt, dev)) if specs is not None
+             else res_coef(x0, ctx))
+    chans = sorted(probe, key=_one_key)
+    for idx in chans:
+        if not _check_idx(idx, dim):
+            raise ValueError(f"residual channel {idx} out of range")
+    max_order = max([1] + [_chan_total(i) for i in chans])
+    bg = torch.zeros(tuple(space.node_shape[::-1]), dtype=dt, device=dev)
+    zero = (0,) * dim
+    conv_boxes, gen_boxes = _boxes(space, conv_min)
+    per_point = (2 * max(len(chans), 2) + _field_count(specs, dim) + dim) * bg.element_size()
+    for blo, bext, reps in _conv_tasks(space, conv_boxes, per_point):
+        X = _fine_X(space, blo, bext)
+        ch = (res_coef(X, ctx, _fine_fields(space, specs, blo, bext)) if specs is not None
+              else res_coef(X, ctx))
+        Fc = torch.stack([torch.broadcast_to(_as(ch[idx], dt, dev), X.shape[:-1])
+                          for idx in chans])
+        del ch, X
+        out = _conv(_space_to_depth(space, Fc, bext),
+                    _test_kernel(space, dt, reps, tuple(chans)), space.degrees)
+        _add_folded(space, bg, out[0], _window(space, blo, bext), zero, lead=0)
+    for blo, bext in gen_boxes:
+        ids = _box_ids(space, blo, bext)
+        pb = tabulate_elements(space, ids, order=_tab_order(max_order, specs))
+        ch = (res_coef(pb.x, ctx, _element_fields(space, specs, pb, space.device_emap(ids)))
+              if specs is not None else res_coef(pb.x, ctx))
+        Fe = None
+        for idx in chans:
+            wc = pb.weight * torch.broadcast_to(_as(ch[idx], dt, dev), pb.weight.shape)
+            term = torch.einsum("bq,bqa->ba", wc, _chan_D(pb.shape, idx))
+            Fe = term if Fe is None else Fe + term
+        _, Gv = fastpath.accumulate_box(space, bext, Fe=Fe[..., None])
+        _add_folded(space, bg, Gv[..., 0], _box_node_slices(space, blo, bext), zero, lead=0)
+    return bg.reshape(space.nnodes, 1)

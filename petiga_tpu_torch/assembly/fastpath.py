@@ -36,6 +36,7 @@ __all__ = [
     "accumulate_matrix_dyn",
     "accumulate_vector_dyn",
     "accumulate_matrix_dyn_planes",
+    "accumulate_box",
 ]
 
 
@@ -217,3 +218,50 @@ def accumulate_vector_dyn(space, b_grid, Fe, z0):
     if space.periodic[-1]:
         raise ValueError("dynamic accumulation requires an open slow axis")
     return accumulate_vector(space, b_grid, Fe, z0)
+
+
+def accumulate_box(space, ebox, Ke=None, Fe=None, z0: int = 0):
+    """Shift-accumulate the element blocks of a regular element SUB-BOX
+    into box-local grids (the conv engine's generic boxes): ``nen``
+    static slice adds per chunk, like the whole-grid path.
+
+    Args:
+      ebox: full box extents (e_0..e_{dim-1}).
+      Ke: (B, nen, nen, dof, dof) or None; Fe: (B, nen, dof) or None,
+        with B = kz·prod(ebox[:-1]) covering slabs [z0, z0+kz) of the
+        box's slowest axis, axis-0 fastest.
+
+    Returns ``(Gm, Gv)``: ``((ebox_d - 1 + nen_d)_rev..., K, dof, dof)``
+    and ``(..., dof)`` on the box-extended node grid (None for an absent
+    input).  Unit element step only; the caller places the result.
+    """
+    dim, dof, nen = space.dim, space.dof, space.nen
+    nshape = space.nen_shape
+    locs = space._local_index
+    E = Ke if Ke is not None else Fe
+    next_rev = tuple(ebox[d] - 1 + nshape[d] for d in range(dim))[::-1]
+    sbox_rev = tuple(2 * p + 1 for p in space.degrees)[::-1]
+    kz = E.shape[0] // int(np.prod(ebox[:-1])) if dim > 1 else E.shape[0]
+    chunk_rev = (kz,) + tuple(ebox[:-1][::-1])
+    opts = dict(dtype=E.dtype, device=E.device)
+    Gm = Gv = None
+    if Ke is not None:
+        KeG = Ke.reshape(chunk_rev + (nen,) + tuple(nshape[::-1]) + (dof, dof))
+        Gm = torch.zeros(next_rev + sbox_rev + (dof, dof), **opts)
+    if Fe is not None:
+        FeG = Fe.reshape(chunk_rev + (nen, dof))
+        Gv = torch.zeros(next_rev + (dof,), **opts)
+    for a in range(nen):
+        am = [int(locs[d][a]) for d in range(dim)]
+        gsl = tuple(
+            slice(am[dim - 1 - g] + (z0 if g == 0 else 0),
+                  am[dim - 1 - g] + (z0 if g == 0 else 0) + chunk_rev[g])
+            for g in range(dim)
+        )
+        if Gm is not None:
+            Gm[gsl + _slot_box(space, am)] += KeG[(Ellipsis, a) + (slice(None),) * (dim + 2)]
+        if Gv is not None:
+            Gv[gsl] += FeG[..., a, :]
+    if Gm is not None:
+        Gm = Gm.reshape(next_rev + (int(np.prod(sbox_rev)), dof, dof))
+    return Gm, Gv

@@ -28,6 +28,8 @@ __all__ = [
     "operator_from_jax_planes",
     "operator_from_stencil_data",
     "random_stencil_data",
+    "state_from_reference",
+    "planes_from_reference",
 ]
 
 
@@ -136,3 +138,32 @@ def random_stencil_data(stencil, seed, symmetric=False) -> np.ndarray:
             valid &= (j >= 0) & (j < st.node_shape[d])
     data = np.random.default_rng(seed).normal(size=valid.shape + (st.dof, st.dof))
     return data * valid[..., None, None]
+
+
+def state_from_reference(state, dtype=torch.float64, device=None):
+    """One state of the reference in the port's types: an array (a node
+    vector ``(nnodes, dof)`` or ``(nnodes,)``) becomes a tensor of
+    ``dtype`` on ``device``, a 0-d array a Python float; a dict (an
+    ``aux`` dict of node vectors, a model's ``ctx``) is converted entry by
+    entry; Python numbers pass through."""
+    if isinstance(state, dict):
+        return {k: state_from_reference(v, dtype, device) for k, v in state.items()}
+    if isinstance(state, (int, float)):
+        return state
+    a = np.array(state)
+    return float(a) if a.ndim == 0 else _torch(a, dtype, device)
+
+
+def planes_from_reference(op, device=None, dtype=None) -> StencilOperator:
+    """The port's :class:`StencilOperator` holding the planes of a
+    reference operator: a ``PallasStencilOperator`` (its ``DT`` and
+    ``align``, periodic halos kept) or a node-major ``StencilMatrix`` /
+    ``SymmetricStencilMatrix`` (its ``data``)."""
+    if hasattr(op, "DT"):
+        return operator_from_jax_planes(op.stencil, np.asarray(op.DT), align=op.align,
+                                        symmetric=op.kind == "sym", device=device,
+                                        dtype=dtype)
+    st = as_stencil(op.stencil)
+    data = np.asarray(op.data)
+    return operator_from_stencil_data(st, data, symmetric=data.shape[1] != st.K,
+                                      device=device, dtype=dtype)

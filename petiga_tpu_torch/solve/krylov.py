@@ -1,13 +1,18 @@
-"""Conjugate gradients on stencil operators (port of the ``cg`` half of
-:mod:`petiga_tpu.solve.krylov`).
+"""Krylov solvers on stencil operators (port of
+:mod:`petiga_tpu.solve.krylov`): CG, BiCGStab, restarted GMRES, and the
+point- and block-Jacobi preconditioners.
 
 ``A`` is an object with ``.matvec`` or a callable ``x -> A@x``; ``M`` an
 optional preconditioner ``r -> M^{-1} r``.  Vectors may be node-ordered
-or packed (``StencilOperator.pack_vec``): CG only needs dots and axpys.
+or packed (``StencilOperator.pack_vec``): the solvers only need dots and
+axpys.
 
-The loop runs on the host and reads ``‖r‖²`` every iteration to test
-convergence, which synchronises with the device once per iteration; that
-keeps the iteration count identical to the reference's ``while_loop``.
+The loops run on the host and read ``‖r‖²`` every iteration (every
+restart cycle for GMRES) to test convergence, which synchronises with the
+device once per iteration; that keeps the iteration counts identical to
+the reference's ``while_loop``.  Breakdowns (``rho = 0`` or ``omega = 0``
+in BiCGStab) are not guarded, as in the reference: they show as
+non-finite iterates.
 """
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-__all__ = ["cg", "KrylovResult", "jacobi_preconditioner"]
+__all__ = ["cg", "bicgstab", "gmres", "KrylovResult", "jacobi_preconditioner",
+           "block_jacobi_preconditioner"]
 
 
 class KrylovResult(NamedTuple):
@@ -41,6 +47,20 @@ def jacobi_preconditioner(A):
 
     def M(r):
         return (r.reshape(inv.shape) * inv).reshape(r.shape)
+
+    return M
+
+
+def block_jacobi_preconditioner(A):
+    """Block-Jacobi with the dof×dof diagonal blocks (the BAIJ-style
+    point-block preconditioner natural for dof > 1 problems)."""
+    D = A.diagonal()  # (nnodes, dof, dof)
+    Dinv = torch.linalg.inv(D)
+
+    def M(r):
+        shape = r.shape
+        r = r.reshape(D.shape[0], D.shape[1])
+        return torch.einsum("nab,nb->na", Dinv, r).reshape(shape)
 
     return M
 
@@ -82,3 +102,103 @@ def cg(
         rz = rz_new
         k += 1
     return KrylovResult(x=x, iters=k, residual=torch.sqrt(_dot(r, r)))
+
+
+def bicgstab(
+    A,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    *,
+    M: Optional[Callable] = None,
+    rtol: float = 1e-8,
+    atol: float = 0.0,
+    maxiter: int = 10000,
+) -> KrylovResult:
+    """Preconditioned BiCGStab for nonsymmetric operators; same stopping
+    test as :func:`cg`.  The scalars stay on the device: only ``‖r‖²``
+    is read each iteration."""
+    matvec = _as_matvec(A)
+    Mv = M if M is not None else (lambda r: r)
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - matvec(x)
+    rhat = r
+    bnorm = torch.sqrt(_dot(b, b)).item()
+    tol2 = max(rtol * bnorm, atol) ** 2
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    rho = alpha = omega = one
+    v = p = torch.zeros_like(b)
+    k = 0
+    while k < maxiter and _dot(r, r).item() > tol2:
+        rho_new = _dot(rhat, r)
+        beta = (rho_new / rho) * (alpha / omega)
+        p = r + beta * (p - omega * v)
+        phat = Mv(p)
+        v = matvec(phat)
+        alpha = rho_new / _dot(rhat, v)
+        s = r - alpha * v
+        shat = Mv(s)
+        t = matvec(shat)
+        omega = _dot(t, s) / _dot(t, t)
+        x = x + alpha * phat + omega * shat
+        r = s - omega * t
+        rho = rho_new
+        k += 1
+    return KrylovResult(x=x, iters=k, residual=torch.sqrt(_dot(r, r)))
+
+
+def gmres(
+    A,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    *,
+    M: Optional[Callable] = None,
+    rtol: float = 1e-8,
+    atol: float = 0.0,
+    restart: int = 30,
+    maxiter: int = 1000,
+) -> KrylovResult:
+    """Restarted GMRES(m) with left preconditioning.
+
+    Each cycle builds a ``restart``-column Arnoldi basis by modified
+    Gram–Schmidt and solves the small least-squares problem
+    ``min ‖β e₁ − H y‖`` on the host by LAPACK's rank-revealing QR
+    (minimum norm, like the reference's ``lstsq``).  ``maxiter`` counts inner iterations and is
+    converted to ``ceil(maxiter/restart)`` cycles; ``iters`` reports
+    ``cycles·restart``, an upper bound, as in the reference."""
+    cycles = -(-int(maxiter) // int(restart))
+    matvec = _as_matvec(A)
+    Mv = M if M is not None else (lambda r: r)
+    x = torch.zeros_like(b) if x0 is None else x0
+    shape = b.shape
+    dt = b.dtype
+    tol = max(rtol * torch.sqrt(_dot(b, b)).item(), atol)
+
+    def arnoldi_cycle(x):
+        r = Mv(b - matvec(x)).reshape(-1)
+        beta = torch.sqrt(_dot(r, r))
+        V = torch.zeros((restart + 1, r.numel()), dtype=dt, device=b.device)
+        H = torch.zeros((restart + 1, restart), dtype=dt, device=b.device)
+        V[0] = torch.where(beta > 0, r / beta, torch.zeros_like(r))
+        for j in range(restart):
+            w = Mv(matvec(V[j].reshape(shape))).reshape(-1)
+            for i in range(j + 1):  # modified Gram-Schmidt
+                h = _dot(V[i], w)
+                H[i, j] = h
+                w = w - h * V[i]
+            hn = torch.sqrt(_dot(w, w))
+            H[j + 1, j] = hn
+            V[j + 1] = torch.where(hn > 1e-30, w / hn, torch.zeros_like(w))
+        e1 = torch.zeros(restart + 1, dtype=dt)
+        e1[0] = beta.cpu()
+        y = torch.linalg.lstsq(H.cpu(), e1[:, None]).solution[:, 0]
+        return x + (y.to(b.device) @ V[:restart]).reshape(shape)
+
+    def rnorm(x):
+        r = b - matvec(x)
+        return torch.sqrt(_dot(r, r))
+
+    k = 0
+    while k < cycles and rnorm(x).item() > tol:
+        x = arnoldi_cycle(x)
+        k += 1
+    return KrylovResult(x=x, iters=k * restart, residual=rnorm(x))

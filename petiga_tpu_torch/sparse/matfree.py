@@ -15,8 +15,9 @@ transpose chain scatters back with shifted in-place adds
 f64 residual of the mixed-precision refinement reads differences of
 1e-12 and must not change from run to run).
 
-``JacobianFreeOperator`` is not ported yet: it needs
-``assemble_function`` (ROADMAP Queue 1 item 10).
+``JacobianFreeOperator`` applies the exact Jacobian of a nonlinear
+residual form by forward-mode AD (``torch.func.jvp``) of the element
+residuals, never assembling it.
 """
 
 from __future__ import annotations
@@ -450,11 +451,28 @@ class MatFreeOperator:
 
 
 class JacobianFreeOperator:
-    """Exact Jacobian action by forward-mode AD of the batched residual
-    (Newton–Krylov without the stencil).  Not ported yet."""
+    """Exact Jacobian *action* J(U)·v by forward-mode AD of the batched
+    residual — Newton–Krylov without ever materializing the stencil
+    (JFNK): about two residual evaluations per product and O(vector)
+    memory.
 
-    def __init__(self, *args, **kw):
-        raise NotImplementedError(
-            "JacobianFreeOperator needs assemble_function, which is not ported "
-            "yet (ROADMAP Queue 1 item 10)"
-        )
+    Dirichlet semantics carry over exactly: fixed residual rows are
+    ``u - v``, so their linearization is the identity row — the same
+    elimination the assembled path applies."""
+
+    def __init__(self, space, function, U, ctx=None, *, aux=None,
+                 order=None, chunk=None, boundary=None):
+        self.space = space
+        self.U = U.reshape(space.nnodes, space.dof)
+        self._args = (function, ctx, aux, order, chunk, boundary)
+
+    def matvec(self, v):
+        from ..assembly.assemble import _assemble_residual
+
+        function, ctx, aux, order, chunk, boundary = self._args
+        Jv = _assemble_residual(self.space, function, self.U, ctx, aux, order, chunk,
+                                boundary, tangent=v)
+        return Jv.reshape(-1) if v.dim() == 1 else Jv
+
+    def __matmul__(self, v):
+        return self.matvec(v)

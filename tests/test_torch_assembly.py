@@ -200,10 +200,9 @@ def test_assemble_system_planes_matches_jax(dim, nel, chunk):
 
 
 def test_waiting_branches_raise():
+    """``assemble_separable_planes`` still waits (ROADMAP item 12); the
+    nonlinear entry points are held in ``test_torch_nonlinear.py``."""
     _, ts = _pair(jpoisson.make_space(2, p=1, nel=2, dtype=jnp.float64))
-    for fn in (tasm.assemble_function, tasm.assemble_jacobian):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(ts, None, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tasm.assemble_separable_planes(ts)
 

@@ -110,5 +110,15 @@ def test_refused_spaces():
     _, ts = _space(2, 2, mapped=True)
     with pytest.raises(ValueError, match="identity map"):
         MatFreeOperator(ts).load_vector(lambda x: x[..., 0])
-    with pytest.raises(NotImplementedError, match="assemble_function"):
-        JacobianFreeOperator(ts, None, None)
+    # the Jacobian-free operator takes the mapped space: its action equals
+    # the assembled AD Jacobian's there
+    from petiga_tpu_torch.assembly.assemble import assemble_jacobian
+
+    def res(pt, Ue, ctx):
+        return pt.shape1 @ pt.grad(Ue)[0] + torch.exp(pt.value(Ue)[0]) * pt.shape0
+
+    rng = np.random.default_rng(2)
+    U, v = (torch.as_tensor(rng.normal(scale=0.1, size=(ts.nnodes, 1))) for _ in range(2))
+    y = assemble_jacobian(ts, res, U).matvec(v)
+    assert float((JacobianFreeOperator(ts, res, U).matvec(v) - y).abs().max()) <= (
+        1e-12 * float(y.abs().max()))

@@ -121,15 +121,15 @@ def test_reaction_diffusion_system_matches(sym):
 
 
 def test_unported_routes_raise():
+    """The conv engine's routes still queued name their ROADMAP item:
+    mapped geometry (8.6) and dof > 1 blocks (8.7)."""
     sp = tpoisson.make_space(2, p=2, nel=4, dtype=torch.float64, device="cpu")
-
-    def varying(x, ctx):
-        return {(1, 1): 1.0 + x[..., 0], (2, 2): 1.0}
-
-    with pytest.raises(NotImplementedError, match="8.2"):
-        tconv.assemble_coefficient_planes(sp, varying)
-    with pytest.raises(NotImplementedError, match="8.4"):
-        tconv.assemble_coefficient_planes(sp, tconv.poisson_coefficients, fields={})
+    sp.init_geometry(1.5 * sp.greville_coordinates())
+    with pytest.raises(NotImplementedError, match="8.6"):
+        tconv.assemble_coefficient_planes(sp, tconv.poisson_coefficients)
+    sp2 = tpoisson.make_space(2, p=2, nel=4, dtype=torch.float64, device="cpu").clone(dof=2)
+    with pytest.raises(NotImplementedError, match="8.7"):
+        tconv.assemble_coefficient_planes(sp2, tconv.poisson_coefficients)
 
 
 @pytest.mark.parametrize("dim,nel,sym", [(3, 6, False), (3, 5, True), (2, 7, False)])
