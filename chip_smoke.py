@@ -52,10 +52,44 @@ entry points at the sizes its users run:
         Jacobian-free operator and with GMRES against Newton-CG on the
         kernel operator, at λ = 6.80, rtol 1e-12 (1e-9, Newton iterations
         within one); prints a GMRES(30) restart cycle's ms beside its host
-        least squares' ms.
+        least squares' ms;
+  elast96
+        the vector (dof 3) class at full size, f32: 3-D linear elasticity,
+        p=2, 96³ elements (2.82 M unknowns, 1125 planes, 4.24 GB), all
+        faces clamped, λ = μ = 1, the manufactured field of
+        examples/elasticity.py with its body force by AD; pointwise
+        assembly in element chunks, block-Jacobi CG and MG-CG
+        (``MGHierarchy.build`` 96 → 48 → 24 → 12 → 6, ``mg_preconditioner``)
+        to rtol 1e-6 on the kernel operator, the symmetric storage's
+        product against the full one, and MG-CG at 24³.  Checks: each
+        solve's true relative residual in f64 within 30× its floor (the
+        f64 solution of the same f32 system, rounded to f32), MG-CG in
+        fewer iterations than block-Jacobi CG and within +5 of its 24³
+        count, ``full_vs_sym_matvec_rel`` ≤ 1e-5;
+  elast_f64
+        MG-CG in f64 at 24³ and 48³: the L2 error falls at order 3 ± 0.2;
+  elast_conv
+        the conv engine's (3, 3)-block planes of elasticity written as
+        order-1 channels against the pointwise planes: 1e-5 of the largest
+        entry in f32 at 96³, 1e-12 in f64 at 16³;
+  precond
+        Schwarz (rigid-body and constant coarse spaces), field split
+        (additive, multiplicative), EBE and BBB on 24³ elasticity in f64
+        and f32, each held to its JAX test's criterion (EBE's on that
+        test's 2-D Poisson problem);
+  hyper
+        Neo-Hooke, St-Venant–Kirchhoff and Mooney–Rivlin at 16³ and
+        Neo-Hooke at 32³ (stretch 0.1 in 4 load steps), f64, Newton–CG
+        on the kernel with the AD tangent, and the small-strain limit
+        against linear elasticity;
+  ns    the stabilized Navier–Stokes cavity at 64² (ν = 0.1,
+        Newton–BiCGStab) and two RBVMS generalized-α steps of the
+        Taylor–Green vortex at 32², f64.
 
-The periodic row of the kernel table is timed on the ch128 Jacobian at the
-final state (125 planes on the 132³ extended grid); its library call is a
+The elasticity rows of the kernel table are timed on the 96³ operator
+(dof 3: 1125 planes full, 567 symmetric); their library call is a CSR
+matvec of the same scalar matrix (row node·3 + a).  The periodic row of
+the kernel table is timed on the ch128 Jacobian at the final state (125 planes on the 132³ extended grid); its library call is a
 CSR matvec of the same periodic matrix (columns wrapped modulo N).  Every
 row's bound counts the planes' node columns, x and y: the zero halo
 columns that the periodic layout streams besides are a cost of the
@@ -89,7 +123,8 @@ Usage, from the repository root, on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
-Prints one JSON line per phase, the ``nvidia-smi`` name/power-limit line,
+Prints one JSON line per phase (and the wall seconds of each block of
+phases), the ``nvidia-smi`` name/power-limit line,
 a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Exits non-zero, without that last line, when no CUDA device is present
 or any phase fails.
@@ -140,6 +175,8 @@ HBM_BYTES_S = 3.35e12
 PEAK_FLOP_S = {torch.float32: 67e12, torch.float64: 34e12}
 # kernel launches of each counted path, by phase
 PHASE_LAUNCHES = {}
+# wall seconds of each block of phases
+PHASE_SECONDS = {}
 
 
 def emit(obj):
@@ -258,14 +295,15 @@ def phase_kernels():
         return Stencil(node_shape=shape, widths=(p,) * len(shape), periodic=per, dof=dof)
 
     cases = [(f"full-3d-open-nel6-dof{d}", st((8, 8, 8), 2, (False,) * 3, d), False)
-             for d in (1, 2, 3)]
+             for d in (1, 2, 3, 4)]
     cases += [
         ("full-2d-periodic-nel7", st((7, 7), 2, (True, True), 1), False),
         ("full-2d-mixed-nel7-dof2", st((7, 9), 2, (True, False), 2), False),
+        ("full-3d-periodic-nel6-dof4", st((8, 8, 8), 2, (True, True, False), 4), False),
         ("full-1d-p3", st((23,), 3, (False,), 1), False),
     ]
     cases += [(f"sym-3d-open-nel6-dof{d}", st((8, 8, 8), 2, (False,) * 3, d), True)
-              for d in (1, 2)]
+              for d in (1, 2, 3, 4)]
     for name, stc, sym in cases:
         for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
             op = _random_operator(stc, sym, dtype, seed=len(name))
@@ -504,27 +542,32 @@ def phase_entry():
 
 
 def device_csr(op, rows_per_chunk=1 << 20):
-    """The matrix of a full-storage operator (dof 1) as a CSR
-    ``torch.sparse`` tensor, built on the card from the planes.
+    """The matrix of a full-storage operator as a CSR ``torch.sparse``
+    tensor, built on the card from the planes.
 
-    Entry (node n, slot s) is plane s at n's column of the extended grid
-    (periodic axes carry a halo of p on each side).  Its column is the
-    node ``n + off_s``: taken modulo ``N_d`` on a periodic axis (every
-    slot lands inside), and kept on an open axis only where the slot
-    stays inside the grid (the clipped slots hold zero planes).  Entries
-    whose value is zero (the Dirichlet fix leaves explicit zeros) are
-    dropped, so the library call moves no entry it could do without.
-    Each row's columns are sorted on the card.  One pass counts the rows'
-    entries, a second fills them; no host pass.  Indices are int32 where
-    the count allows.  Returns ``(csr, nnz, index dtype)``."""
+    Entry (node n, slot s, block entry (a, b)) is plane ``(s·dof + a)·dof
+    + b`` at n's column of the extended grid (periodic axes carry a halo
+    of p on each side).  Its row is ``n·dof + a`` and its column ``(n +
+    off_s)·dof + b``, the node ``n + off_s`` taken modulo ``N_d`` on a
+    periodic axis (every slot lands inside) and kept on an open axis only
+    where the slot stays inside the grid (the clipped slots hold zero
+    planes).  Entries whose value is zero (the Dirichlet fix and
+    elasticity's sparse blocks leave explicit zeros) are dropped, so the
+    library call moves no entry it could do without.  Each row's columns
+    are sorted on the card.  One pass counts the rows' entries, a second
+    fills them; no host pass.  Indices are int32 where the count allows.
+    Returns ``(csr, nnz, index dtype)``."""
     st = op.st
-    if op.kind != "full" or st.dof != 1:
-        raise ValueError("device_csr: full storage, dof 1 only")
-    dev, n, N, Ne = op.device, st.nnodes, st.node_shape, op.Ne
+    if op.kind != "full":
+        raise ValueError("device_csr: full storage only")
+    dev, n, N, Ne, dof = op.device, st.nnodes, st.node_shape, op.Ne, st.dof
     offs = torch.as_tensor(st.slot_offsets(), device=dev)  # (K, dim)
+    rows_per_chunk = max(1, rows_per_chunk // (dof * dof))
+    bidx = torch.arange(dof, device=dev)
 
     def chunk(r0):
-        """rows, their values and columns in column order, the keep mask"""
+        """scalar rows, their values and columns in column order, the
+        keep mask"""
         rows = torch.arange(r0, min(r0 + rows_per_chunk, n), device=dev)
         rem, ext, col = rows, 0, 0
         mask = torch.ones((rows.numel(), st.K), dtype=torch.bool, device=dev)
@@ -541,12 +584,17 @@ def device_csr(op, rows_per_chunk=1 << 20):
             col = col + j * stride_n
             stride_n *= N[d]
             stride_e *= Ne[d]
-        v = op.DT[:, ext].T
-        mask &= v != 0
-        col, order = torch.sort(torch.where(mask, col, n), dim=1)
-        return rows, v.gather(1, order), col, mask.gather(1, order)
+        R = rows.numel()
+        # (node, a, slot, b): scalar row n·dof + a, column (n + off_s)·dof + b
+        v = op.DT[:, ext].T.reshape(R, st.K, dof, dof).permute(0, 2, 1, 3)
+        c = (col[:, None, :, None] * dof + bidx).expand(R, dof, st.K, dof)
+        m = mask[:, None, :, None].expand(R, dof, st.K, dof) & (v != 0)
+        v, c, m = (t.reshape(R * dof, st.K * dof) for t in (v, c, m))
+        c, order = torch.sort(torch.where(m, c, n * dof), dim=1)
+        srows = torch.arange(r0 * dof, r0 * dof + R * dof, device=dev)
+        return srows, v.gather(1, order), c, m.gather(1, order)
 
-    indptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    indptr = torch.zeros(n * dof + 1, dtype=torch.int64, device=dev)
     for r0 in range(0, n, rows_per_chunk):
         rows, _, _, mask = chunk(r0)
         indptr[rows + 1] = mask.sum(dim=1)
@@ -557,18 +605,20 @@ def device_csr(op, rows_per_chunk=1 << 20):
     cols = torch.empty(nnz, dtype=itype, device=dev)
     for r0 in range(0, n, rows_per_chunk):
         rows, v, col, mask = chunk(r0)
-        lo, hi = int(indptr[r0]), int(indptr[r0 + rows.numel()])
+        lo, hi = int(indptr[rows[0]]), int(indptr[rows[-1] + 1])
         vals[lo:hi] = v[mask]
         cols[lo:hi] = col[mask].to(itype)
-    csr = torch.sparse_csr_tensor(indptr.to(itype), cols, vals, size=(n, n),
+    csr = torch.sparse_csr_tensor(indptr.to(itype), cols, vals, size=(n * dof, n * dof),
                                   check_invariants=False)
     return csr, nnz, itype
 
 
-def library_csr_ms(op, xb, shape, structural_nnz):
+def library_csr_ms(op, xb, shape, structural_nnz, min_frac=0.9):
     """ms of one PyTorch call for the stencil kernels' product: a CSR
     ``torch.sparse`` matvec of the same matrix (:func:`device_csr`),
-    timed like the kernels.  The port never calls it."""
+    timed like the kernels.  The port never calls it.  The CSR keeps at
+    least ``min_frac`` of the structural entries (the rest are the
+    Dirichlet fix's and the blocks' exact zeros)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     csr, nnz, itype = device_csr(op)
@@ -583,10 +633,55 @@ def library_csr_ms(op, xb, shape, structural_nnz):
           "csr_GB": nnz * (op.DT.element_size() + itype.itemsize) / 1e9,
           "rel_vs_kernel": rel,
           "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
-    check(f"library_csr:{shape}:nnz", 0.9 * structural_nnz <= nnz <= structural_nnz,
-          value=nnz, want=f"within 10 % under {structural_nnz}")
+    check(f"library_csr:{shape}:nnz", min_frac * structural_nnz <= nnz <= structural_nnz,
+          value=nnz, frac=nnz / structural_nnz,
+          want=f"between {min_frac:g} and 1 x {structural_nnz}")
     check(f"library_csr:{shape}:agrees", rel <= 1e-5, rel=rel)
     return min(runs)
+
+
+def kernel_row(name, op, shape, replaces, xb, library_ms):
+    """One row of the kernel table: the kernel against its plain version
+    on ``xb``, both timed (kernel, plain, kernel, plain: 20 calls each),
+    its bound and the library call's ms; ``launches`` is filled in at
+    the end of the run."""
+    from petiga_tpu_torch.sparse import spmv
+
+    sym = op.kind == "sym"
+    err, rel_err = kernel_vs_plain(op, xb)
+    yb = torch.zeros_like(xb)
+    plain = spmv._spmv_sym_plain if sym else spmv._spmv_full_plain
+    shifts = op.shifts_u if sym else op.shifts
+    fn = spmv.stencil_spmv_sym if sym else spmv.stencil_spmv_full
+    runs = {"ms": [], "plain_ms": []}
+    for _ in range(2):
+        runs["ms"].append(time_ms(lambda: fn(op.DT, xb, op._shift_t, op.G, out=yb), reps=20))
+        runs["plain_ms"].append(time_ms(lambda: plain(op.DT, xb, shifts, op.G, yb), reps=20))
+    ms, plain_ms = min(runs["ms"]), min(runs["plain_ms"])
+    # the least time the card could take: the planes' node columns and x
+    # read once, y written once (a periodic layout's halo columns hold
+    # zeros the product does not need), against 2 operations per stored
+    # nonzero (twice that for the symmetric kernel's mirror term)
+    isz, nn = op.DT.element_size(), op.st.nnodes
+    need = op.nplanes * nn * isz
+    gbps = need / (ms * 1e-3) / 1e9
+    nbytes = need + 2 * nn * op.dof * isz
+    flops = 2 * op.nplanes * nn * (2 if sym else 1)
+    t_bytes = 1e3 * nbytes / HBM_BYTES_S
+    t_ops = 1e3 * flops / PEAK_FLOP_S[op.DT.dtype]
+    row = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+           "launches": None, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": library_ms, "shape": shape, "dof": op.dof, "planes": op.nplanes,
+           "rel_err": rel_err, "plane_GB_s": gbps, "plane_roofline_frac": gbps / 3350.0,
+           "plane_bound_ms": 1e3 * need / HBM_BYTES_S, "planes_needed_GB": need / 1e9,
+           "planes_streamed_GB": op.plane_bytes / 1e9}
+    emit({"phase": "timing", **row, "ms_runs": runs["ms"], "plain_ms_runs": runs["plain_ms"]})
+    check(f"timing:{name}:{shape}:agrees", rel_err <= 1e-5, rel_err=rel_err)
+    return {k: row[k] for k in ("name", "route", "source", "replaces", "launches",
+                                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "shape")}
 
 
 def phase_f64(poisson):
@@ -838,6 +933,432 @@ def phase_nonlinear_f64(nel=16):
     emit(row)
 
 
+# ------------------------------------------ the vector (dof > 1) class
+
+# 3-D linear elasticity, p = 2, dof 3, all faces clamped, λ = μ = 1, the
+# manufactured field of examples/elasticity.py; Krylov solves to rtol 1e-6
+# in f32 (1e-10 in f64)
+ELAST_CTX = {"lambda": 1.0, "mu": 1.0}
+ELAST_RTOL = {torch.float32: 1e-6, torch.float64: 1e-10}
+# element chunk of the pointwise elasticity assembly: two z-slabs of 96²
+# elements, about 0.4 GB of f32 element matrices (81² entries each)
+ELAST_CHUNK = 2 * 96 * 96
+# MG-CG may take this many more iterations at 96³ than at 24³
+MG_BAND = 5
+
+
+def elastic_exact(x):
+    """u_0 = Π sin(π x_i), u_1 = Π x_i (1 − x_i), u_2 = 2 u_1 on one point
+    (3,) or a batch (..., 3)."""
+    rest = torch.prod(x * (1 - x), dim=-1)
+    return torch.stack([torch.prod(torch.sin(math.pi * x), dim=-1), rest, 2 * rest], dim=-1)
+
+
+def elastic_channels(x, ctx):
+    """Elasticity as order-1 channels with (3, 3) blocks: ``C_kl[r, c] =
+    λ δ_rk δ_cl + μ δ_rl δ_ck + μ δ_rc δ_kl``."""
+    lam, mu = ctx["lambda"], ctx["mu"]
+    ch = {}
+    for k in range(3):
+        for l in range(3):
+            C = np.zeros((3, 3))
+            C[k, l] += lam
+            C[l, k] += mu
+            if k == l:
+                C += mu * np.eye(3)
+            ch[(k + 1, l + 1)] = C
+    return ch
+
+
+def elastic_space(nel, dtype):
+    from petiga_tpu_torch.core.axis import Axis
+    from petiga_tpu_torch.core.space import Space
+
+    sp = Space([Axis.uniform(p=2, nel=nel)] * 3, dof=3, dtype=dtype)
+    for d in range(3):
+        for side in range(2):
+            for c in range(3):
+                sp.set_boundary_value(d, side, c, 0.0)
+    return sp
+
+
+def elastic_system(sp, ctx=None):
+    """Pointwise assembly of the manufactured problem: (A, b)."""
+    from petiga_tpu_torch.assembly.assemble import assemble_system
+    from petiga_tpu_torch.models import elasticity as el
+
+    return assemble_system(sp, el.body_force_system(elastic_exact), ctx or ELAST_CTX,
+                           chunk=ELAST_CHUNK)
+
+
+def compute_l2(sp, U):
+    """L2 error of a displacement against the manufactured field."""
+    from petiga_tpu_torch.assembly.assemble import compute_error_norm
+
+    return compute_error_norm(sp, U, elastic_exact)
+
+
+def elastic_hierarchy(sp, A_fine):
+    """``MGHierarchy.build`` with the fine level's kernel operator and the
+    coarse levels assembled pointwise (their planes packed for the
+    kernel): the operators every V-cycle product runs on."""
+    from petiga_tpu_torch.assembly.assemble import assemble_system
+    from petiga_tpu_torch.models import elasticity as el
+    from petiga_tpu_torch.solve.multigrid import MGHierarchy
+
+    def assemble(s):
+        if s is sp:
+            return A_fine
+        return assemble_system(s, el.elasticity_system, ELAST_CTX, chunk=ELAST_CHUNK)[0]
+
+    return MGHierarchy.build(sp, assemble, min_nel=4)
+
+
+def elastic_quality(op, b, Us):
+    """Each f32 solution's true relative residual ``‖b − A U‖/‖b‖`` in
+    f64 against its floor: the f64 block-Jacobi CG solution of the same
+    f32 system, rounded to f32."""
+    from petiga_tpu_torch.solve.krylov import block_jacobi_preconditioner, cg
+    from petiga_tpu_torch.sparse.spmv import StencilOperator
+
+    op64 = StencilOperator.from_planes(op.st, op.DT.double())
+    b64 = b.double()
+    bn = float(torch.linalg.vector_norm(b64))
+
+    def rel_res(v):
+        return float(torch.linalg.vector_norm(b64 - op64.matvec(v.double()))) / bn
+
+    res = cg(op64, b64, M=block_jacobi_preconditioner(op64), rtol=1e-10, maxiter=10000)
+    out = {"f64_solve_iters": res.iters, "floor_rel_residual": rel_res(res.x.float())}
+    out.update({f"{k}_true_rel_residual": rel_res(U) for k, U in Us.items()})
+    del op64
+    return out
+
+
+def mg_cg(sp, op, b, hier, rtol):
+    """MG-CG on the kernel operator: (result, seconds, V-cycle ms)."""
+    from petiga_tpu_torch.solve.krylov import cg
+    from petiga_tpu_torch.solve.multigrid import mg_preconditioner
+
+    M = mg_preconditioner(hier)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = cg(op, b, M=M, rtol=rtol, maxiter=1000)
+    t = sync_s(t0)
+    return res, t, time_ms(lambda: M(b), reps=3, warm=1)
+
+
+def phase_elast96(nel=96, nel_small=24):
+    """The slice at full size, f32: assembly, block-Jacobi CG and MG-CG on
+    the 96³ operator, the symmetric storage's product against the full
+    one, and MG-CG at 24³ for the mesh-independence check.  Returns the
+    space, the node-major operator, its kernel operator, the symmetric
+    kernel operator, b and the seeded probe."""
+    from petiga_tpu_torch.solve.krylov import block_jacobi_preconditioner, cg
+    from petiga_tpu_torch.sparse.stencil import SymmetricStencilMatrix
+
+    rtol = ELAST_RTOL[torch.float32]
+    row = {"phase": f"elast{nel}", "nel": nel}
+    sp = elastic_space(nel, torch.float32)
+    times = []
+    for _ in range(2):  # the first call includes first-use allocations
+        A = b = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A, b = elastic_system(sp)
+        times.append(sync_s(t0))
+    t0 = time.perf_counter()
+    op = A.fast_operator()
+    t_pack = sync_s(t0)
+    row.update({"nnodes": sp.nnodes, "unknowns": sp.nnodes * 3, "planes": op.nplanes,
+                "plane_GB": op.plane_bytes / 1e9, "assembly_s": times[-1],
+                "assembly_first_s": times[0], "pack_s": t_pack})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bj = cg(op, b, M=block_jacobi_preconditioner(A), rtol=rtol, maxiter=5000)
+    t_bj = sync_s(t0)
+    t0 = time.perf_counter()
+    hier = elastic_hierarchy(sp, op)
+    t_h = sync_s(t0)
+    mg, t_mg, vc_ms = mg_cg(sp, op, b, hier, rtol)
+    row.update({"bj_iters": bj.iters, "bj_s": t_bj, "bj_ms_per_iter": 1e3 * t_bj / max(bj.iters, 1),
+                "mg_levels": [s.elem_shape[0] for s in hier.spaces], "mg_build_s": t_h,
+                "mg_iters": mg.iters, "mg_s": t_mg, "mg_ms_per_iter": 1e3 * t_mg / max(mg.iters, 1),
+                "vcycle_ms": vc_ms,
+                "l2_error_bj": float(compute_l2(sp, bj.x)), "l2_error_mg": float(compute_l2(sp, mg.x))})
+    del hier
+    # the symmetric storage's product on a seeded probe
+    probe = torch.as_tensor(np.random.default_rng(8).normal(size=(sp.nnodes, 3)),
+                            dtype=torch.float32, device=sp.device)
+    op_sym = SymmetricStencilMatrix.from_full(A).fast_operator()
+    y_full, y_sym = op.matvec(probe), op_sym.matvec(probe)
+    rel = float((y_sym - y_full).abs().max() / y_full.abs().max())
+    row.update({"sym_planes": op_sym.nplanes, "full_vs_sym_matvec_rel": rel})
+    # MG-CG at 24³, the same problem
+    sp_s = elastic_space(nel_small, torch.float32)
+    A_s, b_s = elastic_system(sp_s)
+    op_s = A_s.fast_operator()
+    mg_s, _, _ = mg_cg(sp_s, op_s, b_s, elastic_hierarchy(sp_s, op_s), rtol)
+    row.update({f"mg_iters_{nel_small}": mg_s.iters, "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+    del A_s, b_s, op_s
+    emit(row)
+    check(f"elast{nel}:full_vs_sym_matvec_rel", rel <= 1e-5, value=rel, want="<= 1e-5")
+    check(f"elast{nel}:mg_fewer_iters", mg.iters < bj.iters, mg=mg.iters, bj=bj.iters)
+    check(f"elast{nel}:mg_mesh_independent", mg.iters <= mg_s.iters + MG_BAND,
+          value=mg.iters, at_small=mg_s.iters, want=f"<= {mg_s.iters} + {MG_BAND}")
+    return sp, A, op, op_sym, b, probe, {"bj": bj.x, "mg": mg.x}
+
+
+def elast96_quality(nel, op, b, Us):
+    q = elastic_quality(op, b, Us)
+    emit({"phase": f"elast{nel}_quality", **q})
+    lim = RESIDUAL_OVER_FLOOR * q["floor_rel_residual"]
+    for k in Us:
+        v = q[f"{k}_true_rel_residual"]
+        check(f"elast{nel}:{k}:true_rel_residual", v <= lim, value=v,
+              want=f"<= {RESIDUAL_OVER_FLOOR:g} x floor {lim:.3e}")
+
+
+def phase_elast_f64(nels=(24, 48)):
+    """MG-CG in f64: the L2 error of the manufactured field falls at the
+    p = 2 rate, 3 ± 0.2 (tests/test_models_vector.py:46)."""
+    rtol = ELAST_RTOL[torch.float64]
+    l2 = {}
+    for nel in nels:
+        sp = elastic_space(nel, torch.float64)
+        A, b = elastic_system(sp)
+        op = A.fast_operator()
+        res, t, vc = mg_cg(sp, op, b, elastic_hierarchy(sp, op), rtol)
+        l2[nel] = float(compute_l2(sp, res.x))
+        emit({"phase": f"elast{nel}_f64", "mg_iters": res.iters, "mg_s": t, "vcycle_ms": vc,
+              "cg_residual": float(res.residual), "l2_error": l2[nel]})
+        del A, b, op, res
+    order = float(np.log2(l2[nels[0]] / l2[nels[1]]))
+    check("elast_f64:l2_order", abs(order - 3.0) <= 0.2, value=order, want="3 +- 0.2")
+
+
+def phase_elast_conv(sp96, op96, nel64=16):
+    """The (3, 3)-block coefficient planes of the conv engine (elasticity
+    as order-1 channels, the constant blocks' outer-product write)
+    against the pointwise planes: 1e-5 of the largest entry in f32 at
+    96³, 1e-12 in f64 at 16³."""
+    from petiga_tpu_torch.assembly.convform import assemble_coefficient_planes
+
+    n = sp96.elem_shape[0]
+    row = {"phase": "elast_conv"}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opc, _ = assemble_coefficient_planes(sp96, elastic_channels, ELAST_CTX)
+    row[f"conv_assembly_s_{n}"] = sync_s(t0)
+    rel = planes_rel_diff(opc.DT, op96.DT)
+    del opc
+    sp = elastic_space(nel64, torch.float64)
+    A, _ = elastic_system(sp)
+    opc, _ = assemble_coefficient_planes(sp, elastic_channels, ELAST_CTX)
+    rel64 = planes_rel_diff(opc.DT, A.fast_operator().DT)
+    row.update({f"conv_vs_pointwise_rel_f32_{n}": rel, f"conv_vs_pointwise_rel_f64_{nel64}": rel64})
+    emit(row)
+    check("elast_conv:f32", rel <= 1e-5, value=rel, want="<= 1e-5")
+    check("elast_conv:f64", rel64 <= 1e-12, value=rel64, want="<= 1e-12")
+
+
+def _ebe_blocks(sp, system, ctx):
+    """Per-element Dirichlet-fixed blocks (nel, nen·dof, nen·dof)."""
+    from petiga_tpu_torch.assembly.assemble import _make_element_KF
+
+    Ke = _make_element_KF(sp, ctx, 1, True)(torch.arange(sp.nel, device=sp.device), None,
+                                            system)[0]
+    n = sp.nen * sp.dof
+    return Ke.permute(0, 1, 3, 2, 4).reshape(sp.nel, n, n)
+
+
+def phase_precond(nel=24):
+    """Each preconditioner of the slice on 3-D elasticity (λ = 2, μ = 1,
+    body force sin(π x)) in f64 and f32, held to the criterion of its
+    JAX test: Schwarz with rigid-body coarse modes takes at most 2
+    iterations more than with the constants (tests/test_schwarz.py:160-162);
+    field split additive (CG) and multiplicative (BiCGStab), EBE (CG) and
+    BBB (BiCGStab, fewer iterations than Jacobi-CG) each reach the
+    block-Jacobi CG solution (tests/test_fieldsplit.py:53,
+    tests/test_blockpc.py:70): 1e-7 absolute in f64, 1e-3 of its largest
+    entry in f32.  EBE's own criterion, at most 3× the iterations of
+    Jacobi-CG (tests/test_blockpc.py:53), is held on that test's problem,
+    2-D Poisson at 12² in f64."""
+    from petiga_tpu_torch.assembly.assemble import assemble_system
+    from petiga_tpu_torch.models import elasticity as el
+    from petiga_tpu_torch.models import poisson
+    from petiga_tpu_torch.solve.blockpc import bbb_preconditioner, ebe_preconditioner
+    from petiga_tpu_torch.solve.fieldsplit import fieldsplit_preconditioner
+    from petiga_tpu_torch.solve.krylov import (
+        bicgstab, block_jacobi_preconditioner, cg, jacobi_preconditioner)
+    from petiga_tpu_torch.solve.schwarz import schwarz_preconditioner
+
+    ctx = {"lambda": 2.0, "mu": 1.0, "body_force": lambda x: torch.sin(math.pi * x)}
+    for dt in (torch.float64, torch.float32):
+        name = str(dt)[6:]
+        rtol = ELAST_RTOL[dt]
+        sp = elastic_space(nel, dt)
+        A, b = assemble_system(sp, el.elasticity_system, ctx, chunk=ELAST_CHUNK)
+        op = A.fast_operator()
+        ref = cg(op, b, M=block_jacobi_preconditioner(A), rtol=rtol, maxiter=5000)
+        jac = cg(op, b, M=jacobi_preconditioner(A), rtol=rtol, maxiter=5000)
+        scale = float(ref.x.abs().max())
+        tol_x = 1e-7 if dt == torch.float64 else 1e-3 * scale
+        row = {"phase": f"precond_{name}", "nel": nel, "bj_iters": ref.iters,
+               "jacobi_iters": jac.iters}
+
+        def run(key, solver, M_build):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            M = M_build()
+            t_b = sync_s(t0)
+            t0 = time.perf_counter()
+            res = solver(op, b, M=M, rtol=rtol, maxiter=5000)
+            t_s = sync_s(t0)
+            err = float((res.x - ref.x).abs().max())
+            row[key] = {"iters": res.iters, "build_s": t_b, "solve_s": t_s, "max_diff": err}
+            check(f"precond:{name}:{key}:solution", err <= tol_x and math.isfinite(err),
+                  value=err, want=f"<= {tol_x:.3e}")
+            return res
+
+        subs = (nel // 6,) * 3  # boxes of 7 nodes a side, 9 with the overlap
+        rc = run("schwarz_constants", cg, lambda: schwarz_preconditioner(
+            A, subdomains=subs, overlap=1))
+        rr = run("schwarz_rigid_body", cg, lambda: schwarz_preconditioner(
+            A, subdomains=subs, overlap=1, coarse_modes=el.rigid_body_modes(sp)))
+        check(f"precond:{name}:schwarz_rbm_iters", rr.iters <= rc.iters + 2,
+              rbm=rr.iters, constants=rc.iters, want="rbm <= constants + 2")
+        run("fieldsplit_additive", cg, lambda: fieldsplit_preconditioner(A, kind="additive"))
+        run("fieldsplit_multiplicative", bicgstab,
+            lambda: fieldsplit_preconditioner(A, kind="multiplicative"))
+        # EBE on 3-D elasticity converges to the solution, but takes more
+        # than 3× Jacobi-CG's iterations (4.6× at 24³ in f64 on an H100),
+        # and in f32 the reference's pseudo-inverse cut-off (10·n·eps)
+        # falls among the element matrices' own smallest singular values:
+        # its count is printed, and the JAX test's criterion is held on
+        # that test's own problem below
+        run("ebe", cg, lambda: ebe_preconditioner(sp, _ebe_blocks(sp, el.elasticity_system,
+                                                                   ctx)))
+        rb = run("bbb", bicgstab, lambda: bbb_preconditioner(A, overlap=1))
+        check(f"precond:{name}:bbb_iters", rb.iters < jac.iters, value=rb.iters,
+              want=f"< {jac.iters}")
+        if dt == torch.float64:
+            # EBE on the JAX test's own problem (2-D Poisson, p = 2, 12²,
+            # f64): at most 3× the iterations of Jacobi-CG, the solution
+            # within 1e-8 of Jacobi-CG's at rtol 1e-12
+            # (tests/test_blockpc.py:44-53)
+            psp = poisson.make_space(2, p=2, nel=12, dtype=dt)
+            pctx = {"c": 0.0, "k": 1.0}
+            A, b = assemble_system(psp, poisson.poisson_system, pctx)
+            op = A.fast_operator()
+            pjac = cg(op, b, M=jacobi_preconditioner(A), rtol=1e-10, maxiter=5000)
+            pref = cg(op, b, M=jacobi_preconditioner(A), rtol=1e-12, maxiter=5000)
+            pe = cg(op, b, rtol=1e-10, maxiter=5000,
+                    M=ebe_preconditioner(psp, _ebe_blocks(psp, poisson.poisson_system, pctx)))
+            err = float((pe.x - pref.x).abs().max())
+            row["ebe_poisson_2d"] = {"iters": pe.iters, "jacobi_iters": pjac.iters,
+                                     "max_diff": err}
+            check(f"precond:{name}:ebe_poisson_2d", pe.iters <= 3 * pjac.iters and err <= 1e-8,
+                  iters=pe.iters, jacobi=pjac.iters, max_diff=err,
+                  want=f"<= 3 x {pjac.iters}, max_diff <= 1e-8")
+        row["peak_mem_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        emit(row)
+        del A, b, op
+
+
+def phase_hyper(nel=16, nel_big=32):
+    """Hyperelasticity, 3-D, f64: Neo-Hooke, St-Venant–Kirchhoff and
+    Mooney–Rivlin at stretch 0.05 on 16³, Neo-Hooke at stretch 0.1 on 32³
+    in 4 load steps,
+    Newton–CG on the kernel with the AD tangent; each converges with the
+    stretch and the clamp held, and at stretch 1e-4 Neo-Hooke is linear
+    elasticity to 1e-3 relative (tests/test_models_vector.py:91)."""
+    from petiga_tpu_torch.assembly.assemble import assemble_system
+    from petiga_tpu_torch.models import elasticity as el
+    from petiga_tpu_torch.models import hyperelasticity as hel
+    from petiga_tpu_torch.solve.krylov import block_jacobi_preconditioner, cg
+
+    f64 = torch.float64
+    # (name, nel, stretch, material, load steps): the first Newton step
+    # starts from the boundary values lifted onto the last element layer,
+    # a deformation gradient of about 1 + 2·stretch·nel there, so the
+    # 32³ stretch of 0.1 is taken in 4 load steps (the 16³ step of 0.05
+    # starts from the same gradient)
+    cases = [("neo_hookean", nel, 0.05, hel.neo_hookean(1.0, 1.0), 1),
+             ("st_venant", nel, 0.05, hel.st_venant(1.0, 1.0), 1),
+             ("mooney_rivlin", nel, 0.05, hel.mooney_rivlin(0.5, 0.1, 1.0), 1),
+             ("neo_hookean", nel_big, 0.1, hel.neo_hookean(1.0, 1.0), 4)]
+    for name, n, stretch, mat, steps in cases:
+        sp = hel.make_space(3, p=2, nel=n, dtype=f64, stretch=stretch)
+        hist = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        U, res = hel.solve(sp, material=mat, rtol=1e-10, chunk=4096, continuation=steps,
+                           monitor=lambda k, f, li: hist.append((f, li)))
+        t = sync_s(t0)
+        Ug = U.reshape(*sp.node_shape[::-1], 3)
+        bc = max(float((Ug[:, :, -1, 0] - stretch).abs().max()), float(Ug[:, :, 0, :].abs().max()))
+        emit({"phase": f"hyper_{name}_{n}", "stretch": stretch, "load_steps": steps,
+              "newton_iters": res.iters,
+              "fnorm_history": [h[0] for h in hist], "cg_iters": [h[1] for h in hist[1:]],
+              "seconds": t, "boundary_err": bc, "max_u": float(U.abs().max())})
+        check(f"hyper:{name}:{n}:converged", res.converged and bc <= 1e-10,
+              fnorm=res.fnorm, boundary_err=bc)
+    eps = 1e-4
+    sp = hel.make_space(3, p=2, nel=nel, dtype=f64, stretch=eps)
+    U, res = hel.solve(sp, rtol=1e-12, chunk=4096)
+    sp2 = hel.make_space(3, p=2, nel=nel, dtype=f64, stretch=eps)
+    A, b = assemble_system(sp2, el.elasticity_system, ELAST_CTX)
+    Ul = cg(A.fast_operator(), b, M=block_jacobi_preconditioner(A), rtol=1e-12, maxiter=5000).x
+    diff = float((U - Ul).abs().max()) / eps
+    emit({"phase": "hyper_small_strain", "nel": nel, "newton_iters": res.iters,
+          "rel_diff_vs_linear": diff})
+    check("hyper:small_strain_vs_linear", res.converged and diff < 1e-3, value=diff,
+          want="< 1e-3")
+
+
+def phase_ns(nel_cavity=64, nel_tg=32):
+    """Navier–Stokes VMS, 2-D, dof 3, f64: the lid-driven cavity at ν = 0.1
+    (tests/test_models_transient.py:41-52: the lid and no-slip values,
+    recirculation, fnorm < 1e-4) and two generalized-α steps of the
+    Taylor–Green vortex (E1/E0 within 5 % of exp(−16π²νt), ‖∇·u‖ < 0.5)."""
+    from petiga_tpu_torch.models import navierstokes as ns
+
+    sp = ns.make_cavity_space(nel=nel_cavity, p=2)
+    hist = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    U, res = ns.solve_cavity(sp, nu=0.1, rtol=1e-5, maxit=25,
+                             monitor=lambda k, f, li: hist.append((f, li)))
+    t = sync_s(t0)
+    Ug = U.reshape(*sp.node_shape[::-1], 3)
+    lid = float((Ug[-1, 1:-1, 0] - 1.0).abs().max())
+    wall = float(Ug[0, :, 0].abs().max())
+    recirc = float(Ug[1:-1, :, 0].min())
+    emit({"phase": f"ns_cavity_{nel_cavity}", "newton_iters": res.iters, "seconds": t,
+          "fnorm_history": [h[0] for h in hist], "bicgstab_iters": [h[1] for h in hist[1:]],
+          "lid_err": lid, "wall_err": wall, "min_ux": recirc})
+    check("ns:cavity", res.converged and res.fnorm < 1e-4 and lid <= 1e-10 and wall <= 1e-10
+          and recirc < -1e-3 and bool(torch.isfinite(U).all()),
+          fnorm=res.fnorm, lid_err=lid, wall_err=wall, min_ux=recirc)
+    nu, dt = 0.02, 5e-3
+    sp = ns.taylor_green_space(nel=nel_tg, p=2)
+    U0 = ns.taylor_green_init(sp, nu)
+    lam = 8 * math.pi**2 * nu
+    rate = torch.tensor([-lam, -lam, -2 * lam], dtype=U0.dtype, device=U0.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    U, _, tt = ns.solve_transient_vms(sp, U0, nu=nu, dt=dt, nsteps=2, V0=U0 * rate)
+    t = sync_s(t0)
+    E0, E1 = float(ns.kinetic_energy(sp, U0)), float(ns.kinetic_energy(sp, U))
+    expect = math.exp(-16 * math.pi**2 * nu * tt)
+    div = float(ns.divergence_l2(sp, U))
+    emit({"phase": f"ns_taylor_green_{nel_tg}", "seconds": t, "E1_over_E0": E1 / E0,
+          "expected": expect, "divergence_l2": div})
+    check("ns:taylor_green", E1 < E0 and abs(E1 / E0 - expect) <= 0.05 * expect and div < 0.5
+          and bool(torch.isfinite(U).all()), ratio=E1 / E0, expected=expect, div=div)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
@@ -846,6 +1367,7 @@ def main():
     from petiga_tpu_torch.models import poisson
     from petiga_tpu_torch.sparse import spmv
 
+    t_start = time.perf_counter()
     smi = phase_env()
     phase_build()
     phase_kernels()
@@ -928,15 +1450,7 @@ def main():
     sp_ch, U_ch = phase_ch("ch128", 128, 3)
     with counted("nonlinear_f64"):
         phase_nonlinear_f64()
-    emit({"phase": "launches", **PHASE_LAUNCHES})
-    # each kernel is launched on the assembled path and on the new paths
-    for kind, phases in (("full", ("m128", "m256", "m128_refine", "pointwise", "entry", "ch64",
-                                   "ch128", "nonlinear_f64")),
-                         ("sym", ("m256", "m256_refine"))):
-        for ph in phases:
-            check(f"launches:{kind}:{ph}", PHASE_LAUNCHES[ph][kind] > 0,
-                  value=PHASE_LAUNCHES[ph][kind])
-    launches = {k: sum(v[k] for v in PHASE_LAUNCHES.values()) for k in ("full", "sym")}
+    PHASE_SECONDS["poisson_and_nonlinear"] = time.perf_counter() - t_start
 
     # ------------------- f32 solutions against their own systems, in f64
     pointwise_quality(poisson, sp, U_pw, info_pw)
@@ -976,59 +1490,17 @@ def main():
         ("stencil_spmv_sym", op_sym, "m256", f"{PALLAS}:530"),
         ("stencil_spmv_full", op_ch, "ch128", f"{PALLAS}:303"),
     ):
-        sym = op.kind == "sym"
         xb = op.pack_vec(probe if shape == "m256" else torch.randn(
             op.st.nnodes, 1, device="cuda", generator=torch.Generator("cuda").manual_seed(2)))
-        err, rel_err = kernel_vs_plain(op, xb)
-        if not sym:
+        if op.kind == "full":
             library_ms[shape] = library_csr_ms(op, xb, shape, structural[shape])
-        yb = torch.zeros_like(xb)
-        plain = spmv._spmv_sym_plain if sym else spmv._spmv_full_plain
-        shifts = op.shifts_u if sym else op.shifts
-        fn = spmv.stencil_spmv_sym if sym else spmv.stencil_spmv_full
-        # kernel, plain, kernel, plain: 20 timed calls each
-        runs = {"ms": [], "plain_ms": []}
-        for _ in range(2):
-            runs["ms"].append(time_ms(lambda: fn(op.DT, xb, op._shift_t, op.G, out=yb),
-                                      reps=20))
-            runs["plain_ms"].append(time_ms(lambda: plain(op.DT, xb, shifts, op.G, yb),
-                                            reps=20))
-        ms, plain_ms = min(runs["ms"]), min(runs["plain_ms"])
-        # the least time the card could take: the planes' node columns and
-        # x read once, y written once (a periodic layout's halo columns
-        # hold zeros the product does not need), against 2 operations per
-        # stored nonzero (twice that for the symmetric kernel's mirror term)
-        isz, nn = op.DT.element_size(), op.st.nnodes
-        need = op.nplanes * nn * isz
-        gbps = need / (ms * 1e-3) / 1e9
-        nbytes = need + 2 * nn * op.dof * isz
-        flops = 2 * op.nplanes * nn * (2 if sym else 1)
-        t_bytes = 1e3 * nbytes / HBM_BYTES_S
-        t_ops = 1e3 * flops / PEAK_FLOP_S[op.DT.dtype]
-        row = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-               "launches": launches["sym" if sym else "full"], "max_abs_err": err,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": library_ms[shape],
-               "shape": shape, "rel_err": rel_err, "plane_GB_s": gbps,
-               "plane_roofline_frac": gbps / 3350.0,
-               "plane_bound_ms": 1e3 * need / HBM_BYTES_S,
-               "planes_needed_GB": need / 1e9, "planes_streamed_GB": op.plane_bytes / 1e9,
-               "launches_by_phase": {ph: v["sym" if sym else "full"]
-                                     for ph, v in PHASE_LAUNCHES.items()}}
-        emit({"phase": "timing", **row, "ms_runs": runs["ms"],
-              "plain_ms_runs": runs["plain_ms"]})
-        check(f"timing:{name}:{shape}:agrees", rel_err <= 1e-5, rel_err=rel_err)
-        kernels.append({k: row[k] for k in (
-            "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "launches_by_phase")})
+        kernels.append(kernel_row(name, op, shape, replaces, xb, library_ms[shape]))
 
     # CG host-sync cost: the real loop vs the same steps with no
     # residual read
     for shape, op, b in (("m128-full", op128, b128), ("m256-sym", op_sym, b256)):
         emit({"phase": "cg_sync", "shape": shape, **cg_sync_cost(poisson, op, b)})
-    del op_full, op_sym, op128, op_ch, op, xb, yb
+    del op_full, op_sym, op128, op_ch, op, xb
 
     # --------- f64 assembled solves; the refined solutions held to them
     l2_f64 = phase_f64(poisson)
@@ -1038,6 +1510,47 @@ def main():
               f64_solve=l2_f64[nel], rel_dev=dev, want="within 2 %")
     order = float(np.log2(refined["m128"] / refined["m256"]))
     check("refine:l2_order", abs(order - 3.0) <= 0.15, value=order, want="3 +- 0.15")
+    PHASE_SECONDS["poisson_timing_f64"] = time.perf_counter() - t_start - sum(
+        PHASE_SECONDS.values())
+
+    # ---------------------- the vector (dof > 1) class: elasticity at 96³
+    t0 = time.perf_counter()
+    with counted("elast96"):
+        sp_e, A_e, op_e, op_esym, b_e, probe_e, U_e = phase_elast96()
+    elast96_quality(96, op_e, b_e, U_e)
+    del U_e
+    PHASE_SECONDS["elast96"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_elast_conv(sp_e, op_e)
+    PHASE_SECONDS["elast_conv"] = time.perf_counter() - t0
+    del A_e, b_e
+    t0 = time.perf_counter()
+    xb = op_e.pack_vec(probe_e)
+    lib = library_csr_ms(op_e, xb, "elast96", scalar_nnz(sp_e) * 9, min_frac=0.75)
+    kernels.append(kernel_row("stencil_spmv_full", op_e, "elast96", f"{PALLAS}:392", xb, lib))
+    kernels.append(kernel_row("stencil_spmv_sym", op_esym, "elast96", f"{PALLAS}:530", xb, lib))
+    del op_e, op_esym, xb
+    PHASE_SECONDS["elast96_timing"] = time.perf_counter() - t0
+    for name, fn in (("elast_f64", phase_elast_f64), ("precond", phase_precond),
+                     ("hyper", phase_hyper), ("ns", phase_ns)):
+        t0 = time.perf_counter()
+        with counted(name):
+            fn()
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+    emit({"phase": "seconds", **PHASE_SECONDS, "total": time.perf_counter() - t_start})
+
+    emit({"phase": "launches", **PHASE_LAUNCHES})
+    # each kernel is launched on every counted path
+    for kind, phases in (("full", ("m128", "m256", "m128_refine", "pointwise", "entry", "ch64",
+                                   "ch128", "nonlinear_f64", "elast96", "elast_f64",
+                                   "precond", "hyper", "ns")),
+                         ("sym", ("m256", "m256_refine", "elast96"))):
+        for ph in phases:
+            check(f"launches:{kind}:{ph}", PHASE_LAUNCHES[ph][kind] > 0,
+                  value=PHASE_LAUNCHES[ph][kind])
+    launches = {k: sum(v[k] for v in PHASE_LAUNCHES.values()) for k in ("full", "sym")}
+    for row in kernels:
+        row["launches"] = launches["sym" if "sym" in row["name"] else "full"]
 
     print(smi, flush=True)
     emit({"kernels": kernels})

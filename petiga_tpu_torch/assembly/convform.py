@@ -32,8 +32,10 @@ quadrature grid, ``b = Bᵀ(w·f)``, open or periodic.
 
 The port caches only static tables per space (conv kernels, fine basis
 matrices, box lists), never anything that depends on ``ctx`` or on the
-field values.  Mapped geometry, rational weights and dof > 1 raise
-``NotImplementedError`` naming their ROADMAP item.
+field values.  dof > 1 operators take ``(dof, dof)`` channel blocks: each
+block entry ``(r, c)`` is its own set of planes, written or convolved
+from the channels whose block reaches it.  Mapped geometry and rational
+weights raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -144,23 +146,39 @@ def coefficient_pointwise_form(coef: Callable, forcing: Optional[Callable] = Non
     ``K_ab = Σ_q w_q Σ_ij C_ij D_i N_a D_j N_b`` (and the load ``F_a =
     Σ_q w_q f N_a`` with ``forcing(x, ctx) -> f``), for
     :func:`~petiga_tpu_torch.assembly.assemble.assemble_system` and
-    friends.  dof = 1."""
+    friends.  A channel value with two or more axes is a ``(dof, dof)``
+    block (trailing axes), and the form is then the dof > 1 block form
+    ``K[(a,r),(b,c)] = Σ_q w_q Σ_ij C_ij[r,c] D_i N_a D_j N_b`` with a
+    ``(…, dof)`` forcing."""
 
     def form(pt, w, ctx):
         X = pt.x  # (Q, nsd)
         dt = pt.shape0.dtype
         nen = pt.shape0.shape[-1]
         shapes = (pt.shape0, pt.shape1, pt.shape2)
+        ch = coef(X, ctx)
+        dof = next((int(_value_shape(c)[-1]) for c in ch.values()
+                    if len(_value_shape(c)) >= 2), 1)
         K = None
-        for (i, j), c in coef(X, ctx).items():
-            wc = w * torch.broadcast_to(_as(c, dt, w.device), w.shape)
-            term = torch.einsum("q,qa,qb->ab", wc, _chan_D(shapes, i), _chan_D(shapes, j))
+        for (i, j), c in ch.items():
+            Di, Dj = _chan_D(shapes, i), _chan_D(shapes, j)
+            if dof == 1:
+                wc = w * torch.broadcast_to(_as(c, dt, w.device), w.shape)
+                term = torch.einsum("q,qa,qb->ab", wc, Di, Dj)
+            else:
+                C = torch.broadcast_to(_as(c, dt, w.device), w.shape + (dof, dof))
+                term = torch.einsum("q,qrc,qa,qb->arbc", w, C, Di, Dj)
             K = term if K is None else K + term
+        if dof > 1:
+            K = K.reshape(nen * dof, nen * dof)
         if forcing is None:
-            Fv = torch.zeros(nen, dtype=dt, device=w.device)
-        else:
+            Fv = torch.zeros(nen * dof, dtype=dt, device=w.device)
+        elif dof == 1:
             f = torch.broadcast_to(_as(forcing(X, ctx), dt, w.device), w.shape)
             Fv = torch.einsum("q,qa->a", w * f, pt.shape0)
+        else:
+            f = torch.broadcast_to(_as(forcing(X, ctx), dt, w.device), w.shape + (dof,))
+            Fv = torch.einsum("q,qr,qa->ar", w, f, pt.shape0).reshape(nen * dof)
         return K, Fv
 
     form.qbatched = True
@@ -679,47 +697,72 @@ def _check_space(space, symmetric):
     if space.has_geometry or space.is_rational:
         raise NotImplementedError(
             "conv assembly on mapped or rational geometry (ROADMAP Queue 1 item 8.6)")
-    if space.dof != 1:
-        raise NotImplementedError("conv assembly for dof > 1 (ROADMAP Queue 1 item 8.7)")
 
 
 def assemble_load_vector(space, forcing: Callable, ctx=None):
     """Load vector ``b_a = ∫ f N_a`` (no Dirichlet elimination) on the
-    identity map, dof = 1, open or periodic axes: ``b = Bᵀ(w·f)`` on the
-    fine quadrature grid, sum-factorized one axis at a time, in chunks of
-    the slowest axis.  ``forcing(x, ctx)`` takes points ``(..., dim)``.
-    Returns (nnodes, 1)."""
+    identity map, open or periodic axes: ``b = Bᵀ(w·f)`` on the fine
+    quadrature grid, sum-factorized one axis at a time, in chunks of the
+    slowest axis.  ``forcing(x, ctx)`` takes points ``(..., dim)`` and
+    returns ``(...)`` (dof = 1) or ``(..., dof)``, one load per field.
+    Returns (nnodes, dof)."""
     _check_space(space, False)
-    dim = space.dim
+    dim, dof = space.dim, space.dof
     B = [m[0] for m in _fine_basis_mats(space, space.dtype)]  # (F_d, N_d)
     F_rev = [B[dim - 1 - g].shape[0] for g in range(dim)]
-    per_row = math.prod(F_rev[1:]) * (dim + 3)
+    per_row = math.prod(F_rev[1:]) * (dim + 2 + dof)
     itemsize = torch.empty((), dtype=space.dtype).element_size()
     cz = max(1, min(F_rev[0], _FINE_CHUNK_BYTES // (per_row * itemsize)))
-    bg = torch.zeros(tuple(space.node_shape[::-1]), dtype=space.dtype,
+    bg = torch.zeros(tuple(space.node_shape[::-1]) + (dof,), dtype=space.dtype,
                      device=space.device)
     for z0 in range(0, F_rev[0], cz):
         z1 = min(z0 + cz, F_rev[0])
         X = _fine_points(space, z0, z1)
-        f = torch.broadcast_to(
-            torch.as_tensor(forcing(X, ctx), dtype=space.dtype, device=space.device),
-            X.shape[:-1],
-        )
-        g_ = f * _fine_weights(space, z0, z1)
-        for g in range(dim - 1, -1, -1):  # fast axes first: fine -> nodes
-            Bd = B[dim - 1 - g]
-            if g == 0:
-                Bd = Bd[z0:z1]
-            g_ = torch.movedim(torch.tensordot(Bd, g_, dims=([0], [g])), 0, g)
-        bg += g_
-    return bg.reshape(space.nnodes, 1)
+        f = torch.as_tensor(forcing(X, ctx), dtype=space.dtype, device=space.device)
+        f = torch.broadcast_to(f[..., None] if dof == 1 else f, X.shape[:-1] + (dof,))
+        w = _fine_weights(space, z0, z1)
+        for r in range(dof):
+            g_ = f[..., r] * w
+            for g in range(dim - 1, -1, -1):  # fast axes first: fine -> nodes
+                Bd = B[dim - 1 - g]
+                if g == 0:
+                    Bd = Bd[z0:z1]
+                g_ = torch.movedim(torch.tensordot(Bd, g_, dims=([0], [g])), 0, g)
+            bg[..., r] += g_
+    return bg.reshape(space.nnodes, dof)
+
+
+def _block_entry(space, v, rc):
+    """Entry ``rc = r·dof + c`` of a channel value: the value itself for
+    dof = 1, else entry (r, c) of its ``(…, dof, dof)`` block."""
+    if space.dof == 1:
+        return v
+    v = v if torch.is_tensor(v) else np.asarray(v)
+    return v[..., rc // space.dof, rc % space.dof]
+
+
+def _channels_rc(space, chlist, probe, is_const):
+    """Per plane entry ``rc`` the channels that reach it: for dof > 1 a
+    constant block whose probed ``(r, c)`` entry is exactly zero is left
+    out of that entry (elasticity's blocks are mostly zeros); the
+    reference prunes the same way."""
+    out = []
+    for rc in range(space.dof ** 2):
+        out.append(tuple(
+            ch for ch in chlist
+            if space.dof == 1 or not is_const[ch]
+            or float(_block_entry(space, probe[ch], rc)) != 0.0))
+    return out
 
 
 def _outer_planes(space, chlist, chv, slots):
-    """(len(slots), next) planes: the channel-weighted outer products of
-    the per-axis factor rows, written in chunks of the slowest axis
+    """(len(slots)·dof², next) planes: the channel-weighted outer products
+    of the per-axis factor rows, written in chunks of the slowest axis
     straight into one preallocated tensor (its interior columns; the
-    periodic halo columns stay zero).
+    periodic halo columns stay zero).  For dof > 1 every block entry
+    ``(r, c)`` is written on its own from the channels whose constant
+    block is nonzero there (adding an exact zero would change nothing);
+    an entry no channel reaches stays zero.
 
     The arithmetic follows the reference operation for operation
     (``((f_z·f_y)·f_x)`` per channel, times the channel value, channels
@@ -728,7 +771,7 @@ def _outer_planes(space, chlist, chv, slots):
     rows share one stencil, so its rounding acts as one systematic
     perturbation of every row."""
     st = stencil_of(space)
-    dim = space.dim
+    dim, dd = space.dim, space.dof ** 2
     dt = space.dtype
     p = space.degrees
     N_rev = tuple(space.node_shape[::-1])
@@ -751,34 +794,39 @@ def _outer_planes(space, chlist, chv, slots):
             for d in (dim - 1 - g for g in range(dim))
         ]
         val = torch.as_tensor(chv[(i, j)], dtype=dt, device=space.device)
-        chans.append((val, rows))
+        chans.append(((i, j), val, rows))
+    is_const = {ch: True for ch in chlist}
+    per_rc = [set(c) for c in _channels_rc(space, chlist, chv, is_const)]
 
-    alloc = torch.zeros if any(space.periodic) else torch.empty
-    P = alloc((Keff, math.prod(Ne_rev)), dtype=dt, device=space.device)
+    alloc = torch.zeros if any(space.periodic) or dd > 1 else torch.empty
+    P = alloc((Keff * dd, math.prod(Ne_rev)), dtype=dt, device=space.device)
     interior = tuple(slice((ne - n) // 2, (ne - n) // 2 + n) for n, ne in zip(N_rev, Ne_rev))
-    Pg = P.view((Keff,) + Ne_rev)[(slice(None),) + interior]
+    Pg = P.view((Keff, dd) + Ne_rev)[(slice(None), slice(None)) + interior]
     layer = Keff * math.prod(N_rev[1:]) * P.element_size()
     zc = max(1, min(N_rev[0], _CHUNK_BYTES // layer))
     term = None
     for z0 in range(0, N_rev[0], zc):
         z1 = min(z0 + zc, N_rev[0])
-        blk = Pg[:, z0:z1]
-        for ci, (val, rows) in enumerate(chans):
-            out = blk if ci == 0 else term
-            if out is None or out.shape != blk.shape:
-                out = term = torch.empty(blk.shape, dtype=dt, device=space.device)
-            t0 = rows[0][:, z0:z1]
-            for g in range(1, dim):
-                shape = (Keff,) + (1,) * g + (N_rev[g],)
-                if g < dim - 1:
-                    t0 = t0[..., None] * rows[g].reshape(shape)
-                else:
-                    torch.mul(t0[..., None], rows[g].reshape(shape), out=out)
-            if dim == 1:
-                out.copy_(t0)
-            out.mul_(val)
-            if ci > 0:
-                blk.add_(out)
+        for rc in range(dd):
+            blk = Pg[:, rc, z0:z1]
+            live = [(_block_entry(space, val, rc), rows)
+                    for ch, val, rows in chans if ch in per_rc[rc]]
+            for ci, (val, rows) in enumerate(live):
+                out = blk if ci == 0 else term
+                if out is None or out.shape != blk.shape:
+                    out = term = torch.empty(blk.shape, dtype=dt, device=space.device)
+                t0 = rows[0][:, z0:z1]
+                for g in range(1, dim):
+                    shape = (Keff,) + (1,) * g + (N_rev[g],)
+                    if g < dim - 1:
+                        t0 = t0[..., None] * rows[g].reshape(shape)
+                    else:
+                        torch.mul(t0[..., None], rows[g].reshape(shape), out=out)
+                if dim == 1:
+                    out.copy_(t0)
+                out.mul_(val)
+                if ci > 0:
+                    blk.add_(out)
     return P
 
 
@@ -802,35 +850,47 @@ def _gen_box_matrix(space, coef, ctx, specs, max_order, ids):
 
 def _conv_planes(space, coef, ctx, specs, chlist, chv, is_const, max_order, slots,
                  conv_min):
-    """(len(slots), next) planes of a variable-coefficient spec: one
-    convolution per conv-box chunk, generic boxes by shift accumulation,
-    both folded into the interior of the extended layout."""
+    """(len(slots)·dof², next) planes of a variable-coefficient spec: one
+    convolution per conv-box chunk and block entry ``(r, c)`` (over the
+    channels that reach it), generic boxes by shift accumulation, both
+    folded into the interior of the extended layout."""
     st = stencil_of(space)
-    dim, dt, dev = space.dim, space.dtype, space.device
+    dim, dt, dev, dd = space.dim, space.dtype, space.device, space.dof ** 2
     Ne = ext_shape(st)
+    Ne_rev = tuple(Ne[::-1])
     los = tuple((ne - n) // 2 for n, ne in zip(space.node_shape, Ne))[::-1]
     Keff = len(slots)
-    P = torch.zeros((Keff, math.prod(Ne)), dtype=dt, device=dev)
-    Pg = P.view((Keff,) + tuple(Ne[::-1]))
+    P = torch.zeros((Keff * dd, math.prod(Ne)), dtype=dt, device=dev)
+    Pg = P.view((Keff, dd) + Ne_rev)
+    chmap = _channels_rc(space, chlist, chv, is_const)
     conv_boxes, gen_boxes = _boxes(space, conv_min)
-    per_point = (2 * len(chlist) + _field_count(specs, dim) + dim) * P.element_size()
+    per_point = ((1 + dd) * len(chlist) + _field_count(specs, dim) + dim) * P.element_size()
     for blo, bext, reps in _conv_tasks(space, conv_boxes, per_point):
         X = _fine_X(space, blo, bext)
         ch = (coef(X, ctx, _fine_fields(space, specs, blo, bext)) if specs is not None
               else coef(X, ctx))
         f_rev = X.shape[:-1]
-        Fc = torch.stack([torch.broadcast_to(_as(chv[c] if is_const[c] else ch[c], dt, dev),
-                                             f_rev) for c in chlist])
+        for rc, chl in enumerate(chmap):
+            if not chl:
+                continue
+            Fc = torch.stack([
+                torch.broadcast_to(
+                    _as(_block_entry(space, chv[c] if is_const[c] else ch[c], rc), dt, dev),
+                    f_rev)
+                for c in chl])
+            out = _conv(_space_to_depth(space, Fc, bext),
+                        _conv_kernel(space, chl, dt, reps, slots), space.degrees)
+            del Fc
+            _add_folded(space, Pg[:, rc], out, _window(space, blo, bext), los)
         del ch, X
-        out = _conv(_space_to_depth(space, Fc, bext),
-                    _conv_kernel(space, chlist, dt, reps, slots), space.degrees)
-        del Fc
-        _add_folded(space, Pg, out, _window(space, blo, bext), los)
+    # plane k·dof² + rc of the stored slots, out of the box's K·dof² planes
+    sel = [s * dd + rc for s in slots for rc in range(dd)]
     for blo, bext in gen_boxes:
         Ke = _gen_box_matrix(space, coef, ctx, specs, max_order, _box_ids(space, blo, bext))
         Gm, _ = fastpath.accumulate_box(space, bext, Ke=Ke)
-        contrib = torch.movedim(Gm.reshape(Gm.shape[:dim] + (st.K,)), dim, 0)
-        _add_folded(space, Pg, contrib[list(slots)], _box_node_slices(space, blo, bext), los)
+        contrib = torch.movedim(Gm.reshape(Gm.shape[:dim] + (st.K * dd,)), dim, 0)
+        _add_folded(space, P.view((Keff * dd,) + Ne_rev), contrib[sel],
+                    _box_node_slices(space, blo, bext), los)
     return P
 
 
@@ -850,12 +910,16 @@ def assemble_coefficient_planes(
     straight into kernel planes; returns ``(op, b)`` with ``op`` a
     :class:`StencilOperator` (kind ``"sym"`` when ``symmetric``: only the
     ``Ku = (K+1)/2`` upper slots are built and stored; open axes only)
-    and ``b`` the (nnodes, 1) load vector, Dirichlet-fixed when
+    and ``b`` the (nnodes, dof) load vector, Dirichlet-fixed when
     ``apply_fix``, plus the nodal fluxes.
 
     ``coef(x, ctx) -> {(i, j): value}`` with ``i, j`` channel indices
     (0 = value, ``i`` = d/dx_{i-1}, ``(d1, d2)`` = ∂²/∂x_{d1}∂x_{d2});
-    values are scalars or tensors broadcastable against ``x[..., 0]``.
+    values are scalars or tensors broadcastable against ``x[..., 0]``,
+    and for dof > 1 ``(dof, dof)`` blocks or ``(…, dof, dof)`` tensors
+    (entry ``(r, c)`` couples field ``r`` of the test function to field
+    ``c`` of the trial function: plane ``(s·dof + r)·dof + c``), with a
+    ``(…, dof)`` forcing.  ``fields`` need dof = 1 (ValueError).
     With ``fields`` — names mapped to node vectors ``(nnodes,)`` or to
     ``(vector, order)`` — the signature is ``coef(x, ctx, fe)`` with
     ``fe[name]``, ``fe[name + "_grad"]`` and ``fe[name + "_hess"]`` the
@@ -867,8 +931,10 @@ def assemble_coefficient_planes(
     the type-combo boxes of at least ``conv_min`` elements and assembles
     the rest generically."""
     _check_space(space, symmetric)
+    if fields is not None and space.dof != 1:
+        raise ValueError("field coefficients: dof=1 identity map only")
     st = stencil_of(space)
-    dim, dt = space.dim, space.dtype
+    dim, dt, dof = space.dim, space.dtype, space.dof
     specs = _field_specs(fields)
     x0 = torch.zeros((1, dim), dtype=dt, device=space.device)
     probe = (coef(x0, ctx, _field_probe(specs, dim, dt, space.device)) if specs is not None
@@ -878,7 +944,10 @@ def assemble_coefficient_planes(
         if not (_check_idx(i, dim) and _check_idx(j, dim)):
             raise ValueError(f"channel {(i, j)} out of range")
     max_order = max([1] + [max(_chan_total(i), _chan_total(j)) for i, j in chlist])
-    is_const = {c: _value_shape(probe[c]) == () for c in chlist}
+    if dof > 1 and any(_value_shape(probe[c])[-2:] != (dof, dof) for c in chlist):
+        raise ValueError(f"channel values of a dof={dof} space are ({dof}, {dof}) blocks")
+    const_shapes = ((), (dof, dof)) if dof > 1 else ((),)
+    is_const = {c: _value_shape(probe[c]) in const_shapes for c in chlist}
     slots = tuple(range(st.diag_slot, st.K)) if symmetric else tuple(range(st.K))
     if const_outer and specs is None and all(is_const.values()):
         P = _outer_planes(space, chlist, probe, slots)
@@ -892,7 +961,7 @@ def assemble_coefficient_planes(
     if forcing is not None:
         b = assemble_load_vector(space, forcing, ctx)
     else:
-        b = torch.zeros((st.nnodes, 1), dtype=dt, device=space.device)
+        b = torch.zeros((st.nnodes, dof), dtype=dt, device=space.device)
     if apply_fix:
         op, b = dirichlet_post_fix(space, op, b)
     return op, _add_flux(space, b)

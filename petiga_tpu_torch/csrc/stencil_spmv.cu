@@ -30,6 +30,9 @@
 // is meant to be served by L2 rather than device memory; no atomics and
 // no ring buffer.
 //
+// dof 1-3 take kernels templated on the dof (accumulators in registers);
+// any larger dof takes the *_any kernels, with the dof a runtime bound.
+//
 // Every flat offset is 64-bit: at 256^3 elements, p=2, plane offsets
 // reach 124 * 17,173,512 + n, within 1e6 of 2^31.
 
@@ -133,6 +136,76 @@ stencil_spmv_sym(const T* __restrict__ DT, const T* __restrict__ xb,
   }
 }
 
+// Any dof (the generic path, taken for dof >= 4): the dof is a runtime
+// loop bound, so the accumulators cannot live in a fixed register array.
+// Each thread walks its row's outputs one at a time: output a sums
+// D[(s*dof+a)*dof+b][n] * x_b[n + c_s] over s, then b, in the order of
+// the templated kernels, so every plane entry is still read exactly once
+// per apply; x is re-read dof times per slot, from L1/L2.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+stencil_spmv_full_any(const T* __restrict__ DT, const T* __restrict__ xb,
+                      T* __restrict__ yb, const int* __restrict__ shifts, int K,
+                      int dof, int64_t next, int64_t G) {
+  __shared__ int sh[kMaxSlots];
+  load_shifts(sh, shifts, K);
+  const int64_t seg = next + 2 * G;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  const int64_t dd = (int64_t)dof * dof;
+  for (int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; n < next;
+       n += step) {
+    const T* xn = xb + G + n;
+    const T* dn = DT + n;
+    for (int a = 0; a < dof; ++a) {
+      T acc = T(0);
+      for (int s = 0; s < K; ++s) {
+        const int64_t c = sh[s];
+        const T* ds = dn + ((int64_t)s * dd + (int64_t)a * dof) * next;
+        for (int b = 0; b < dof; ++b)
+          acc = fma(ld(ds + (int64_t)b * next), ld(xn + b * seg + c), acc);
+      }
+      yb[a * seg + G + n] = acc;
+    }
+  }
+}
+
+// The symmetric product for any dof: output o takes, slot by slot, the
+// direct term sum_b D[(ku*dof+o)*dof+b][n] x_b[n + c], then the mirror
+// term sum_a D[(ku*dof+a)*dof+o][n-c] x_a[n - c] (the block transposed).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+stencil_spmv_sym_any(const T* __restrict__ DT, const T* __restrict__ xb,
+                     T* __restrict__ yb, const int* __restrict__ shifts, int Ku,
+                     int dof, int64_t next, int64_t G) {
+  __shared__ int sh[kMaxSlots];
+  load_shifts(sh, shifts, Ku);
+  const int64_t seg = next + 2 * G;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  const int64_t dd = (int64_t)dof * dof;
+  for (int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; n < next;
+       n += step) {
+    const T* xn = xb + G + n;
+    const T* dn = DT + n;
+    for (int o = 0; o < dof; ++o) {
+      T acc = T(0);
+      for (int ku = 0; ku < Ku; ++ku) {
+        const int64_t c = sh[ku];
+        const T* ds = dn + (int64_t)ku * dd * next;
+        for (int b = 0; b < dof; ++b)
+          acc = fma(ld(ds + ((int64_t)o * dof + b) * next), ld(xn + b * seg + c),
+                    acc);
+        if (ku > 0 && n >= c) {
+          const T* dm = ds - c;
+          for (int a = 0; a < dof; ++a)
+            acc = fma(ld(dm + ((int64_t)a * dof + o) * next),
+                      ld(xn + a * seg - c), acc);
+        }
+      }
+      yb[o * seg + G + n] = acc;
+    }
+  }
+}
+
 unsigned grid_for(int64_t next) {
   int64_t blocks = (next + kThreads - 1) / kThreads;
   const int64_t cap = int64_t(1) << 30;
@@ -157,7 +230,14 @@ int launch(bool sym, const T* DT, const T* xb, T* yb, const int* shifts,
     case 1: PTT_LAUNCH(1) break;
     case 2: PTT_LAUNCH(2) break;
     case 3: PTT_LAUNCH(3) break;
-    default: return kErrBadDof;
+    default:
+      if (dof < 1) return kErrBadDof;
+      if (sym)
+        stencil_spmv_sym_any<T><<<grid, kThreads, 0, stream>>>(
+            DT, xb, yb, shifts, nslots, dof, (int64_t)next, (int64_t)G);
+      else
+        stencil_spmv_full_any<T><<<grid, kThreads, 0, stream>>>(
+            DT, xb, yb, shifts, nslots, dof, (int64_t)next, (int64_t)G);
   }
 #undef PTT_LAUNCH
   return (int)cudaGetLastError();
@@ -197,7 +277,7 @@ int ptt_spmv_sym_f64(const double* DT, const double* xb, double* yb,
 
 const char* ptt_error_string(int code) {
   switch (code) {
-    case kErrBadDof: return "stencil SpMV: dof must be 1, 2 or 3";
+    case kErrBadDof: return "stencil SpMV: dof must be at least 1";
     case kErrBadSlots: return "stencil SpMV: slot count out of range";
     case kErrBadSize: return "stencil SpMV: bad vector size or guard";
     default: return cudaGetErrorString((cudaError_t)code);

@@ -30,6 +30,7 @@ __all__ = [
     "random_stencil_data",
     "state_from_reference",
     "planes_from_reference",
+    "prolongations_from_reference",
 ]
 
 
@@ -167,3 +168,10 @@ def planes_from_reference(op, device=None, dtype=None) -> StencilOperator:
     data = np.asarray(op.data)
     return operator_from_stencil_data(st, data, symmetric=data.shape[1] != st.K,
                                       device=device, dtype=dtype)
+
+
+def prolongations_from_reference(hier, dtype=torch.float64, device=None) -> list:
+    """The per-level, per-axis prolongation matrices of a reference
+    ``MGHierarchy`` (``hier.prolongs[lvl][d]``, (N_fine_d, N_coarse_d)) as
+    tensors, in the port's ``MGHierarchy.prolongs`` layout."""
+    return [[_torch(P, dtype, device) for P in level] for level in hier.prolongs]

@@ -10,9 +10,16 @@ axpys.
 The loops run on the host and read ``‖r‖²`` every iteration (every
 restart cycle for GMRES) to test convergence, which synchronises with the
 device once per iteration; that keeps the iteration counts identical to
-the reference's ``while_loop``.  Breakdowns (``rho = 0`` or ``omega = 0``
-in BiCGStab) are not guarded, as in the reference: they show as
-non-finite iterates.
+the reference's ``while_loop``.  BiCGStab restarts at a breakdown
+``rho = (r̂, r) = 0`` with ``r̂`` the current residual, where the reference
+divides by zero: on a mirror-symmetric problem (the Navier–Stokes
+lid-driven cavity) the products of that dot cancel in pairs once the
+residual picks up the mirror-odd part, and the sum is an exact zero.
+Exact zeros of ``(r̂, v)``, ``(t, t)`` and ``omega`` give ``alpha = 0``,
+``omega = 0`` and ``beta = 0`` in place of the reference's division by
+zero, with no extra host read: the other half-step still reduces the
+residual, and ``t = 0`` means ``s = 0``, which ends the loop as
+converged.
 """
 
 from __future__ import annotations
@@ -115,8 +122,9 @@ def bicgstab(
     maxiter: int = 10000,
 ) -> KrylovResult:
     """Preconditioned BiCGStab for nonsymmetric operators; same stopping
-    test as :func:`cg`.  The scalars stay on the device: only ``‖r‖²``
-    is read each iteration."""
+    test as :func:`cg`, and it restarts at a breakdown ``(r̂, r) = 0`` (see
+    the module docstring).  The scalars stay on the device: ``‖r‖²`` and
+    ``(r̂, r)`` are read together once per iteration."""
     matvec = _as_matvec(A)
     Mv = M if M is not None else (lambda r: r)
     x = torch.zeros_like(b) if x0 is None else x0
@@ -128,17 +136,27 @@ def bicgstab(
     rho = alpha = omega = one
     v = p = torch.zeros_like(b)
     k = 0
-    while k < maxiter and _dot(r, r).item() > tol2:
+    while k < maxiter:
         rho_new = _dot(rhat, r)
-        beta = (rho_new / rho) * (alpha / omega)
+        rr, rho_h = torch.stack([_dot(r, r), rho_new]).tolist()
+        if not rr > tol2:
+            break
+        if rho_h == 0.0:  # breakdown: restart from the current residual
+            rhat, rho_new = r, _dot(r, r)
+            rho = alpha = omega = one
+            v = p = torch.zeros_like(b)
+        beta = torch.where(omega != 0, (rho_new / rho) * (alpha / omega),
+                           torch.zeros_like(omega))
         p = r + beta * (p - omega * v)
         phat = Mv(p)
         v = matvec(phat)
-        alpha = rho_new / _dot(rhat, v)
+        rv = _dot(rhat, v)
+        alpha = torch.where(rv != 0, rho_new / rv, torch.zeros_like(rv))
         s = r - alpha * v
         shat = Mv(s)
         t = matvec(shat)
-        omega = _dot(t, s) / _dot(t, t)
+        tt = _dot(t, t)
+        omega = torch.where(tt != 0, _dot(t, s) / tt, torch.zeros_like(tt))
         x = x + alpha * phat + omega * shat
         r = s - omega * t
         rho = rho_new

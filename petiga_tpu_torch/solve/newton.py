@@ -45,6 +45,7 @@ def newton(
     damping: float = 1.0,
     operator: str = "stencil",
     jfnk_pc: Optional[Callable] = None,
+    monitor: Optional[Callable] = None,
 ) -> NewtonResult:
     """Solve F(U) = 0 by Newton's method with an inner Krylov solve.
 
@@ -60,7 +61,9 @@ def newton(
     products are exact AD Jacobian actions
     (:class:`~petiga_tpu_torch.sparse.matfree.JacobianFreeOperator`),
     preconditioned by ``jfnk_pc(U) -> (r -> M⁻¹r)`` when given.
-    ``linear_solver``: ``"cg"``, ``"bicgstab"`` or ``"gmres"``."""
+    ``linear_solver``: ``"cg"``, ``"bicgstab"`` or ``"gmres"``.
+    ``monitor(k, fnorm, linear_iters)`` is called after the initial
+    residual (``linear_iters`` None) and after each iteration."""
     shape = (space.nnodes, space.dof)
     U = U0.reshape(shape)
     solver = {"cg": cg, "bicgstab": bicgstab, "gmres": gmres}[linear_solver]
@@ -74,6 +77,8 @@ def newton(
     F = resid(U)
     fnorm = torch.linalg.vector_norm(F).item()
     tol = max(rtol * fnorm, atol)
+    if monitor is not None:
+        monitor(0, fnorm, None)
     k = 0
     while fnorm > tol and k < maxit:
         if operator == "jfnk":
@@ -93,4 +98,6 @@ def newton(
         F = resid(U)
         fnorm = torch.linalg.vector_norm(F).item()
         k += 1
+        if monitor is not None:
+            monitor(k, fnorm, res.iters)
     return NewtonResult(U=U, iters=k, fnorm=fnorm, converged=fnorm <= tol)

@@ -26,7 +26,8 @@ per iteration, ``unpack_vec`` once): dots and axpys on packed vectors are
 exact for open axes because guards stay zero.
 
 Kernels: :func:`stencil_spmv_full` and :func:`stencil_spmv_sym` launch
-the CUDA kernels of ``csrc/stencil_spmv.cu`` for CUDA tensors and run
+the CUDA kernels of ``csrc/stencil_spmv.cu`` (any dof: templated kernels
+for dof 1–3, a runtime-dof kernel above) for CUDA tensors and run
 their plain PyTorch versions (``_spmv_full_plain``, ``_spmv_sym_plain``)
 for CPU tensors.  ``LAUNCHES`` counts kernel launches.
 """
@@ -90,9 +91,9 @@ def _alloc_packed(xb: torch.Tensor, G: int, next_: int) -> torch.Tensor:
 
 def _check(kind, DT, xb, shifts, G, out):
     dof = xb.shape[0] if xb.dim() == 2 else 0
-    if DT.dim() != 2 or xb.dim() != 2 or dof not in (1, 2, 3):
+    if DT.dim() != 2 or xb.dim() != 2 or dof < 1:
         raise ValueError(
-            f"{kind}: want DT (P, next) and xb (dof<=3, G+next+G), got "
+            f"{kind}: want DT (P, next) and xb (dof, G+next+G), got "
             f"{tuple(DT.shape)} and {tuple(xb.shape)}"
         )
     next_ = DT.shape[1]

@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Rehearse chip_smoke.py's vector-class phases on the CPU at small sizes.
+
+The phases are written for the CUDA device; this script points the
+port's default device at the CPU, replaces the CUDA timing calls by host
+clocks, and runs each phase at a size a CPU handles in seconds to
+minutes, so control flow, shapes and checks are exercised before a chip
+run.  The kernels run as their plain PyTorch versions, so no time printed
+here is a device time.
+
+    python3 scripts/torch_cpu_rehearsal.py elast f64 precond hyper ns
+    python3 scripts/torch_cpu_rehearsal.py mg-band      # MG/BJ counts, 8³-32³ f32
+
+Prints each phase's JSON lines and, last, the failed checks; exits 1 if
+any failed.
+"""
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import petiga_tpu_torch  # noqa: E402
+
+
+class _HostEvent:
+    """A stand-in for ``torch.cuda.Event`` that reads the host clock."""
+
+    def __init__(self, **_):
+        self.t = 0.0
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return 1e3 * (other.t - self.t)
+
+
+def _on_the_cpu():
+    petiga_tpu_torch.default_device = lambda: torch.device("cpu")
+    torch.cuda.synchronize = lambda *a, **k: None
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    torch.cuda.Event = _HostEvent
+
+
+def mg_band(chip_smoke, nels=(8, 16, 24, 32)):
+    """MG-CG and block-Jacobi CG iteration counts of the elast96 problem
+    in f32 at growing sizes (the mesh-independence band)."""
+    from petiga_tpu_torch.solve.krylov import block_jacobi_preconditioner, cg
+
+    for nel in nels:
+        sp = chip_smoke.elastic_space(nel, torch.float32)
+        A, b = chip_smoke.elastic_system(sp)
+        op = A.fast_operator()
+        hier = chip_smoke.elastic_hierarchy(sp, op)
+        mg, _, _ = chip_smoke.mg_cg(sp, op, b, hier, 1e-6)
+        bj = cg(op, b, M=block_jacobi_preconditioner(A), rtol=1e-6, maxiter=5000)
+        chip_smoke.emit({"phase": "mg_band", "nel": nel,
+                         "levels": [s.elem_shape[0] for s in hier.spaces],
+                         "mg_iters": mg.iters, "bj_iters": bj.iters})
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("phases", nargs="+",
+                    choices=["elast", "f64", "precond", "hyper", "ns", "mg-band"])
+    args = ap.parse_args(argv)
+    _on_the_cpu()
+    import chip_smoke as cs
+
+    for ph in args.phases:
+        t0 = time.perf_counter()
+        if ph == "elast":
+            cs.MG_BAND = 100  # 8³ against 4³ says nothing about the band
+            sp, A, op, op_sym, b, probe, Us = cs.phase_elast96(nel=8, nel_small=4)
+            cs.elast96_quality(8, op, b, Us)
+            cs.phase_elast_conv(sp, op, nel64=4)
+        elif ph == "f64":
+            cs.phase_elast_f64(nels=(8, 16))
+        elif ph == "precond":
+            cs.phase_precond(nel=12)
+        elif ph == "hyper":
+            cs.phase_hyper(nel=3, nel_big=4)
+        elif ph == "ns":
+            cs.phase_ns(nel_cavity=12, nel_tg=8)
+        else:
+            mg_band(cs)
+        cs.emit({"rehearsal": ph, "host_s": time.perf_counter() - t0})
+    cs.emit({"failed_checks": cs.FAILURES})
+    return 1 if cs.FAILURES else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

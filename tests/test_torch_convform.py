@@ -268,3 +268,84 @@ def test_empty_fields_call_the_three_argument_spec(conv_min):
     op, _ = tconv.assemble_coefficient_planes(ts, coef3, {"c": 0.5}, fields={},
                                               apply_fix=False, conv_min=conv_min)
     assert torch.equal(op.DT, ref.DT)
+
+
+def _elastic_like(xp):
+    """dof 2 channel blocks: constant elasticity-like (2, 2) blocks on the
+    gradient channels and a varying mass block (the reference's
+    test_conv_dof2_blocks spec)."""
+    def coef(x, ctx):
+        lam, mu = 1.2, 0.7
+        ch = {}
+        for i in range(1, 3):
+            for j in range(1, 3):
+                C = np.zeros((2, 2))
+                C[i - 1, j - 1] += lam
+                if i == j:
+                    C[0, 0] += mu
+                    C[1, 1] += mu
+                C[j - 1, i - 1] += mu
+                ch[(i, j)] = C if xp is jnp else torch.as_tensor(C)
+        m = 0.3 + x[..., 0] * 0.5
+        eye = jnp.eye(2) if xp is jnp else torch.eye(2, dtype=x.dtype)
+        ch[(0, 0)] = m[..., None, None] * eye
+        return ch
+
+    def forcing(x, ctx):
+        return xp.stack([xp.sin(np.pi * x[..., 0]), x[..., 1] + 0.2], **(
+            {"axis": -1} if xp is jnp else {"dim": -1}))
+
+    return coef, forcing
+
+
+@pytest.mark.parametrize("conv_min,const_outer", [(8, True), (1, True), (GEN, False)])
+def test_conv_dof2_blocks(conv_min, const_outer):
+    """dof > 1: (dof, dof) channel blocks, constant and varying, with the
+    zero-pattern pruning, per-field forcing and the Dirichlet fix of one
+    field, through the convolution and the generic boxes; the port's
+    pointwise form of the same spec gives the same planes."""
+    js = JSpace([JAxis.uniform(p=2, nel=7) for _ in range(2)], dof=2, dtype=F64)
+    for d in range(2):
+        for s in range(2):
+            js.set_boundary_value(d, s, 0, 0.0)
+    ts = interop.space_from_reference(js, device="cpu")
+    jcoef, jforce = _elastic_like(jnp)
+    tcoef, tforce = _elastic_like(torch)
+    jop, jb = jconv.assemble_coefficient_planes(js, jcoef, forcing=jforce, interpret=True,
+                                                conv_min=8)
+    op, b = tconv.assemble_coefficient_planes(ts, tcoef, forcing=tforce, conv_min=conv_min,
+                                              const_outer=const_outer)
+    assert _planes_rel(op, jop) <= 1e-12
+    np.testing.assert_allclose(b.numpy(), np.asarray(jb), rtol=0, atol=1e-12)
+    pw, pb = tasm.assemble_system_planes(ts, tconv.coefficient_pointwise_form(tcoef, tforce))
+    assert float((pw.DT - op.DT).abs().max() / op.DT.abs().max()) <= 1e-12
+    assert float((pb - b).abs().max()) <= 1e-12
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_conv_dof3_poisson_vector(symmetric):
+    """dof 3 with decoupled diagonal blocks (three Poissons), 3-D: the
+    outer-product write of constant blocks, full and symmetric storage."""
+    js, ts = _pair(3, 3, (False,) * 3)
+    js, ts = js.clone(dof=3), ts.clone(dof=3)
+
+    def coef(xp):
+        eye = jnp.eye(3) if xp is jnp else torch.eye(3, dtype=torch.float64)
+        return lambda x, ctx: {(i, i): eye * (0.5 + 0.5 * i) for i in range(1, 4)}
+
+    jop, _ = jconv.assemble_coefficient_planes(js, coef(jnp), interpret=True, conv_min=8,
+                                               apply_fix=False, symmetric=symmetric)
+    op, _ = tconv.assemble_coefficient_planes(ts, coef(torch), apply_fix=False,
+                                              symmetric=symmetric)
+    assert _planes_rel(op, jop) <= 1e-12
+    assert op.nplanes == (63 if symmetric else 125) * 9
+
+
+def test_conv_fields_need_dof1():
+    """State fields with dof ≠ 1 raise, as in the reference."""
+    _, ts = _pair(2, 3, (False, False))
+    ts = ts.clone(dof=2)
+    u = torch.zeros(ts.nnodes, dtype=torch.float64)
+    with pytest.raises(ValueError, match="dof=1"):
+        tconv.assemble_coefficient_planes(
+            ts, lambda x, ctx, fe: {(1, 1): np.eye(2)}, fields={"u": u})

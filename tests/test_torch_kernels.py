@@ -25,6 +25,11 @@ KERNEL_CASES = [
     ((23,), (3,), (False,), 1, False),
     ((8, 7, 9), (2, 2, 2), (False,) * 3, 1, True),
     ((7, 6), (2, 2), (False, False), 2, True),
+    ((6, 7, 5), (2, 2, 2), (False,) * 3, 3, False),
+    ((6, 7, 5), (2, 2, 2), (False,) * 3, 3, True),
+    ((6, 7, 5), (2, 2, 2), (False,) * 3, 4, False),
+    ((6, 7, 5), (2, 2, 2), (False,) * 3, 4, True),
+    ((7, 6), (2, 2), (True, False), 4, False),
 ]
 
 

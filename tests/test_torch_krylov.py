@@ -80,3 +80,25 @@ def test_unpacked_cg_jacobi_matches():
     assert _rel(tr.x.numpy(), jr.x) <= 1e-10
     # maxiter caps the count, like the reference's while_loop
     assert tkrylov.cg(op, torch.as_tensor(b), rtol=1e-14, maxiter=2).iters == 2
+
+
+# Systems whose BiCGStab breaks down on exact zeros (every value a binary
+# fraction, so the zeros are exact on any machine): (r̂, r) = 0 with r ≠ 0,
+# and s = 0 (so t = 0) in the second iteration.
+BREAKDOWNS = {
+    "rho": ([[-1.0, -2.0, 0.0], [0.0, 0.0, -1.0], [1.0, 1.0, 1.0]], [1.0, 0.0, 0.0]),
+    "omega": ([[1.0, 1.0], [-1.0, 1.0]], [1.0, 0.0]),
+}
+
+
+@pytest.mark.parametrize("case", list(BREAKDOWNS))
+def test_bicgstab_breakdowns(case):
+    """The port restarts at (r̂, r) = 0 and takes ω = 0 at (t, t) = 0 and
+    reaches the solution; the reference divides by zero there and returns
+    a non-finite iterate (the deliberate difference of ROADMAP Queue 3)."""
+    A, b = (np.asarray(a) for a in BREAKDOWNS[case])
+    At = torch.as_tensor(A)
+    res = tkrylov.bicgstab(lambda x: At @ x, torch.as_tensor(b), rtol=1e-12, maxiter=50)
+    np.testing.assert_allclose(res.x.numpy(), np.linalg.solve(A, b), rtol=0, atol=1e-12)
+    jres = jkrylov.bicgstab(lambda x: jnp.asarray(A) @ x, jnp.asarray(b), rtol=1e-12, maxiter=50)
+    assert not np.isfinite(np.asarray(jres.x)).all()

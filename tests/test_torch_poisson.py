@@ -121,14 +121,15 @@ def test_reaction_diffusion_system_matches(sym):
 
 
 def test_unported_routes_raise():
-    """The conv engine's routes still queued name their ROADMAP item:
-    mapped geometry (8.6) and dof > 1 blocks (8.7)."""
+    """The conv engine's route still queued names its ROADMAP item:
+    mapped geometry (8.6).  dof > 1 blocks (8.7) are ported since and take
+    (dof, dof) channel blocks: scalar channels on a dof = 2 space raise."""
     sp = tpoisson.make_space(2, p=2, nel=4, dtype=torch.float64, device="cpu")
     sp.init_geometry(1.5 * sp.greville_coordinates())
     with pytest.raises(NotImplementedError, match="8.6"):
         tconv.assemble_coefficient_planes(sp, tconv.poisson_coefficients)
     sp2 = tpoisson.make_space(2, p=2, nel=4, dtype=torch.float64, device="cpu").clone(dof=2)
-    with pytest.raises(NotImplementedError, match="8.7"):
+    with pytest.raises(ValueError, match="blocks"):
         tconv.assemble_coefficient_planes(sp2, tconv.poisson_coefficients)
 
 

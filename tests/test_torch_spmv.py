@@ -32,6 +32,9 @@ CASES = [
     ("2d-dof3", (5, 4), (1, 1), (False, False), 3, False, None),
     ("3d-sym-dof1", (5, 4, 6), (1, 1, 1), (False,) * 3, 1, True, None),
     ("2d-sym-dof2", (6, 5), (1, 1), (False, False), 2, True, None),
+    ("2d-periodic-dof4", (6, 5), (1, 1), (True, False), 4, False, None),
+    ("2d-sym-dof4", (5, 6), (1, 1), (False, False), 4, True, None),
+    ("3d-sym-dof3", (4, 5, 4), (1, 1, 1), (False,) * 3, 3, True, None),
     ("2d-multichunk", (132, 130), (1, 1), (False, False), 1, False, None),
     ("3d-hbm", (6, 6, 6), (1, 1, 1), (False,) * 3, 1, False, "hbm"),
 ]
