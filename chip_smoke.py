@@ -84,7 +84,29 @@ entry points at the sizes its users run:
         against linear elasticity;
   ns    the stabilized Navier–Stokes cavity at 64² (ν = 0.1,
         Newton–BiCGStab) and two RBVMS generalized-α steps of the
-        Taylor–Green vortex at 32², f64.
+        Taylor–Green vortex at 32², f64;
+  ch_adapt512, ch_adapt256
+        ``examples/cahnhilliard.py --adaptive`` in f64 at 512² and 256²
+        periodic C¹ p=2: ``integrate_adaptive`` then
+        ``integrate_adaptive_device`` at the example's settings (Newton–
+        BiCGStab on the kernel, AD Jacobian), each mesh held to the JAX
+        package's outcome there (``CH_ADAPT_REF``, from
+        ``scripts/ch_adapt_reference.py``): at 512² the controller rejects
+        the first step twice (error estimates 80.04 and 13.97) and its
+        next dt falls below the floor dt_min = 1e-12, so it stops at t = 0;
+        256² reaches t_end in 16 steps with 3 rejections and is held
+        besides to mass, free energy and t_end.  Both hold the device run
+        to the host run's stop and every Newton solve to its tolerance, and
+        time each residual, Jacobian assembly and BiCGStab solve.  The f64
+        row of the kernel table is timed on the 512² α-step Jacobian (25
+        planes, periodic);
+  transient
+        the θ-method, generalized-α2 and SSP-RK3 steppers, shallow water,
+        Richards (1-D and 2-D), phase-field crystal, Navier–Stokes–Korteweg,
+        two-phase flow, pattern formation, the elastic rod, Laplace–Beltrami
+        and the Kirchhoff plate on manifolds, Nitsche and boundary-integral
+        conditions and adaptive L2 projection, each on its own counted path
+        at a small size, f64, held to its JAX test's criterion.
 
 The elasticity rows of the kernel table are timed on the 96³ operator
 (dof 3: 1125 planes full, 567 symmetric); their library call is a CSR
@@ -301,6 +323,10 @@ def phase_kernels():
         ("full-2d-mixed-nel7-dof2", st((7, 9), 2, (True, False), 2), False),
         ("full-3d-periodic-nel6-dof4", st((8, 8, 8), 2, (True, True, False), 4), False),
         ("full-1d-p3", st((23,), 3, (False,), 1), False),
+        ("full-2d-periodic-nel7-dof3", st((7, 7), 2, (True, True), 3), False),
+        ("full-2d-periodic-nel7-dof2", st((7, 7), 2, (True, True), 2), False),
+        ("full-1d-p1-dof2", st((17,), 1, (False,), 2), False),
+        ("full-2d-open-p3-dof1", st((11, 11), 3, (False, False), 1), False),
     ]
     cases += [(f"sym-3d-open-nel6-dof{d}", st((8, 8, 8), 2, (False,) * 3, d), True)
               for d in (1, 2, 3, 4)]
@@ -1359,6 +1385,515 @@ def phase_ns(nel_cavity=64, nel_tg=32):
           and bool(torch.isfinite(U).all()), ratio=E1 / E0, expected=expect, div=div)
 
 
+# ------------------------- the time steppers and the remaining models
+
+# examples/cahnhilliard.py --adaptive: generalized-α (ρ∞ = 0.5) with
+# Newton–BiCGStab to rtol 1e-6 on the kernel operator, the basic controller
+# from dt 1e-11 to the example's t_end (nsteps·dt·100 = 5e-9) at rtol =
+# atol = 1e-3, in f64 (the example enables x64: the 4th-order problem is
+# stiff)
+CH_CTX = {"theta": 1.5, "alpha": 3000.0, "cbar": 0.63}
+CH_ADAPT = dict(dt0=1e-11, t_end=5e-9, rtol=1e-3, atol=1e-3)
+CH_NEWTON = dict(rtol=1e-6, linear_solver="bicgstab", operator="fast")
+
+
+# The JAX package's run of the same example at each mesh
+# (scripts/ch_adapt_reference.py on the CPU of the H100 machine): its
+# error estimates of the attempts from t = 0 up to the first accepted step,
+# and its outcome.  512² rejects twice and its next proposal falls below
+# dt_min = 1e-12 ("adaptive dt underflow at t=0.0"); 256² accepts its
+# fourth attempt and reaches t_end in 16 steps with 3 rejections.  The
+# estimates are held to 1e-8 relative (the port's read 7.6e-11 from them
+# on the H100: the two packages' Newton iterates part at round-off, and the
+# estimate divides a difference of nearly equal states by 1e-3 weights);
+# dt_final to 1e-9 (4.8e-10 measured: the last step is t_end − t, which
+# cancels to 1/550 of t, and the controller multiplies it by 10).
+CH_ADAPT_REF = {
+    512: dict(outcome="underflow", steps=0, rejections=2,
+              wlte=(80.04117061580094, 13.971770468359145)),
+    256: dict(outcome="t_end", steps=16, rejections=3, dt_final=9.031015970143056e-11,
+              wlte=(2.923523992631488, 1.4859843540683966, 1.0310418252847697,
+                    0.8590754636451763)),
+}
+WLTE_RTOL = 1e-8
+DT_FINAL_RTOL = 1e-9
+
+
+def phase_ch_adapt(nel, expect=None):
+    """The adaptive Cahn–Hilliard example at nel² periodic C¹ p=2 in f64
+    (262,144 unknowns at 512²): ``integrate_adaptive`` (one host read of
+    the error estimate per step), then ``integrate_adaptive_device`` (the
+    controller's state on the card), both from the same U0 and consistent
+    V0, at the example's settings.
+
+    ``expect`` (default ``CH_ADAPT_REF[nel]``) is the reference's outcome:
+    ``"t_end"``, where any exception propagates, or ``"underflow"``, where
+    the host controller must raise its dt-underflow error and the device
+    loop must stop at the same place.  Checks: the outcome, the steps and
+    rejections and, where given, dt_final and the error estimate of each
+    attempt up to the first accepted step against the reference's; t_end for both variants where it is
+    expected; every Newton solve converged; on accepted steps, the mean
+    concentration conserved to 1e-6 and the free energy not rising by more
+    than 1e-6 relative (f64 sums); the device run stops where the host run
+    stopped, with its steps and rejections and its U within 1e-10·max|U|.
+
+    The host variant's Newton runs with ``counters`` (seconds of each
+    residual, Jacobian assembly and BiCGStab solve, the device
+    synchronised at each reading) and its accepted steps run the
+    free-energy monitor: ``host_s`` includes both, ``host_monitor_s`` is
+    the monitor's share; the device variant runs neither.  Returns the
+    space, the host run's last U and the device run's last step size."""
+    from petiga_tpu_torch.assembly.assemble import compute_scalar
+    from petiga_tpu_torch.models import cahnhilliard as ch
+    from petiga_tpu_torch.solve.ts import (
+        AlphaStepper, integrate_adaptive, integrate_adaptive_device)
+
+    name = f"ch_adapt{nel}"
+    expect = CH_ADAPT_REF[nel] if expect is None else expect
+    sp = ch.make_space(dim=2, nel=nel, dtype=torch.float64)
+    U0 = ch.initial_condition(sp, cbar=0.63, seed=0)
+    spans = {}
+    host_st = AlphaStepper(sp, ch.residual, rho_inf=0.5, ctx=CH_CTX,
+                           newton_kw=dict(CH_NEWTON, counters=spans))
+    dev_st = AlphaStepper(sp, ch.residual, rho_inf=0.5, ctx=CH_CTX, newton_kw=CH_NEWTON)
+
+    def stats(U):
+        s = compute_scalar(sp, ch.free_energy_stats, U, CH_CTX, order=1, chunk=CH_CHUNK)
+        return float(s[0]), float(U.double().mean())
+
+    E0, mean0 = stats(U0)
+    t0 = time.perf_counter()
+    V0 = host_st.initial_velocity(U0, 0.0)
+    v0_s = sync_s(t0)
+    v0_rhist = spans["rhist"][0]
+    spans.clear()
+
+    attempts, steps, last = [], [], {"t": 0.0, "U": U0}
+    mon_s = [0.0]
+
+    def on_attempt(t, dt, err, accepted):
+        attempts.append({"t": t, "dt": dt, "wlte": err, "accepted": accepted})
+
+    def monitor(k, t, U):
+        t1 = time.perf_counter()
+        E, mean = stats(U)
+        mon_s[0] += time.perf_counter() - t1
+        steps.append({"step": k, "t": t, "dt": t - last["t"], "free_energy": E, "mean": mean})
+        last.update(t=t, U=U)
+
+    t_end = CH_ADAPT["t_end"]
+    kw = dict(V0=V0, rtol=CH_ADAPT["rtol"], atol=CH_ADAPT["atol"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if expect["outcome"] == "t_end":
+        Uh, _, rh = integrate_adaptive(host_st, U0, 0.0, CH_ADAPT["dt0"], t_end, monitor=monitor,
+                                       attempt_monitor=on_attempt, **kw)
+        host, stop = rh._asdict(), "t_end"
+    else:
+        try:
+            Uh, _, rh = integrate_adaptive(host_st, U0, 0.0, CH_ADAPT["dt0"], t_end,
+                                           monitor=monitor, attempt_monitor=on_attempt, **kw)
+            host, stop = rh._asdict(), "t_end"
+        except RuntimeError as e:
+            if "dt underflow" not in str(e):
+                raise
+            Uh, stop = last["U"], str(e)
+            host = {"t": last["t"], "steps": len(steps),
+                    "rejections": sum(not a["accepted"] for a in attempts)}
+    t_host = sync_s(t0)
+    t0 = time.perf_counter()
+    Ud, _, rd = integrate_adaptive_device(dev_st, U0, 0.0, CH_ADAPT["dt0"], t_end, **kw)
+    t_dev = sync_s(t0)
+
+    # one Newton solve per attempt, in order
+    for a, rh_, li, rs, js, ss in zip(attempts, spans["rhist"], spans["lin_iters"],
+                                      spans["residual_s"], spans["jacobian_s"],
+                                      spans["solve_s"]):
+        a.update(newton_iters=len(li), fnorm=rh_, bicgstab_iters=li,
+                 residual_ms=[1e3 * x for x in rs], jacobian_ms=[1e3 * x for x in js],
+                 bicgstab_ms_per_iter=[1e3 * x / max(i, 1) for x, i in zip(ss, li)])
+    totals = {k: sum(map(sum, spans[k])) for k in ("residual_s", "jacobian_s", "solve_s")}
+    diff = float((Ud - Uh).abs().max())
+    scale = float(Uh.abs().max())
+    emit({"phase": name, "nel": nel, "unknowns": sp.nnodes, "dtype": "float64",
+          "outcome": stop, "expected": expect, "host": host, "device": rd._asdict(),
+          "host_s": t_host, "host_monitor_s": mon_s[0], "host_spans_s": totals,
+          "device_s": t_dev, "v0_s": v0_s, "max_abs_V0": float(V0.abs().max()),
+          "newton_solves_host": len(spans["rhist"]), "attempts": attempts,
+          "device_vs_host_max_diff": diff, "free_energy_0": E0, "steps": steps,
+          "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+
+    if expect["outcome"] == "t_end":
+        check(f"{name}:outcome", stop == "t_end", outcome=stop, want="t_end")
+    else:  # the device loop ends on the proposal below dt_min = 1e-12
+        check(f"{name}:outcome", stop.startswith("adaptive dt underflow") and rd.dt_final < 1e-12,
+              outcome=stop, device_dt_final=rd.dt_final, want="dt underflow in both variants")
+    if "steps" in expect:
+        counts = {k: host[k] for k in ("steps", "rejections")}
+        ref = {k: expect[k] for k in ("steps", "rejections")}
+        check(f"{name}:counts_vs_reference", counts == ref, host=counts, reference=ref)
+    if "dt_final" in expect:
+        got = host.get("dt_final", float("nan"))
+        dev_ = abs(got - expect["dt_final"]) / expect["dt_final"]
+        check(f"{name}:dt_final_vs_reference", dev_ <= DT_FINAL_RTOL, dt_final=got,
+              reference=expect["dt_final"], rel_dev=dev_, want=f"<= {DT_FINAL_RTOL:g}")
+    if "wlte" in expect:
+        got = [a["wlte"] for a in attempts[:len(expect["wlte"])]]
+        ok = len(got) == len(expect["wlte"]) and all(
+            abs(g - r) <= WLTE_RTOL * r for g, r in zip(got, expect["wlte"]))
+        check(f"{name}:wlte_vs_reference", ok, wlte=got, reference=list(expect["wlte"]),
+              want=f"each within {WLTE_RTOL:g} relative")
+    if expect["outcome"] == "t_end":
+        for var, r in (("host", rh), ("device", rd)):
+            check(f"{name}:{var}:t_end", abs(r.t - t_end) <= 1e-10 * t_end, t=r.t, t_end=t_end)
+    for k, h in enumerate([v0_rhist] + spans["rhist"]):
+        check(f"{name}:newton{k}:converged", h[-1] <= CH_NEWTON["rtol"] * h[0],
+              fnorm=h, want=f"<= {CH_NEWTON['rtol']} x first")
+    energies = [E0] + [s["free_energy"] for s in steps]
+    for k, s in enumerate(steps):
+        dev = abs(s["mean"] - mean0) / mean0
+        check(f"{name}:step{k + 1}:mass", dev <= 1e-6, rel_dev=dev, want="<= 1e-6")
+        rise = (energies[k + 1] - energies[k]) / abs(energies[k])
+        check(f"{name}:step{k + 1}:energy", rise <= 1e-6, rel_rise=rise, want="<= 1e-6")
+    same = (rd.steps, rd.rejections) == (host["steps"], host["rejections"]) and (
+        abs(rd.t - host["t"]) <= 1e-10 * t_end)
+    check(f"{name}:device_equals_host", same and diff <= 1e-10 * scale, device=rd._asdict(),
+          host=host, max_diff=diff,
+          want=f"same stop, steps and rejections, U within {1e-10 * scale:.3e}")
+    return sp, Uh, rd.dt_final
+
+
+def _heat_problem(nel, p):
+    """The reference's 1-D heat/wave test problem (tests/test_ts.py):
+    p-spline space with u = 0 at both ends, the L2 projection of
+    sin(πx) on the kernel, and the exact solution's L2 error."""
+    from petiga_tpu_torch.assembly.assemble import compute_error_norm
+    from petiga_tpu_torch.core.axis import Axis
+    from petiga_tpu_torch.core.space import Space
+    from petiga_tpu_torch.models.projection import l2_project
+
+    sp = Space([Axis.uniform(p=p, nel=nel)], dtype=torch.float64)
+    sp.set_boundary_value(0, 0, 0, 0.0)
+    sp.set_boundary_value(0, 1, 0, 0.0)
+
+    def sin(x, a=1.0):
+        return a * torch.sin(math.pi * x[..., :1])
+
+    def error(U, decay):
+        return float(compute_error_norm(sp, U, lambda x: decay * sin(x)))
+
+    return sp, sin, lambda f: l2_project(sp, f), error
+
+
+def heat_ifunction(pt, shift, Ve, t, Ue, ctx):
+    return pt.value(Ve)[0] * pt.shape0 + pt.shape1 @ pt.grad(Ue)[0]
+
+
+def tr_theta():
+    """θ-method on the heat problem (nel 32, p 3, T 0.08, 4 and 8 steps):
+    backward Euler at order 1 ± 0.15, the midpoint rule above 1.8
+    (tests/test_ts.py:56)."""
+    from petiga_tpu_torch.solve.ts import ThetaStepper, integrate
+
+    sp, sin, project, error = _heat_problem(32, 3)
+    U0 = project(sin)
+    T = 0.08
+    rates = {}
+    for theta in (1.0, 0.5):
+        e = []
+        for n in (4, 8):
+            st = ThetaStepper(sp, heat_ifunction, theta=theta,
+                              newton_kw=dict(rtol=1e-12, operator="fast"))
+            e.append(error(integrate(st, U0, 0.0, T / n, n), math.exp(-math.pi**2 * T)))
+        rates[theta] = float(np.log2(e[0] / e[1]))
+    check("transient:theta:orders", abs(rates[1.0] - 1) < 0.15 and rates[0.5] > 1.8,
+          backward_euler=rates[1.0], midpoint=rates[0.5], want="1 +- 0.15, > 1.8")
+    return {"rate_backward_euler": rates[1.0], "rate_midpoint": rates[0.5]}
+
+
+def tr_alpha2():
+    """Generalized-α2 on u_tt = u_xx (nel 16, p 2, ρ∞ 0.9, T 0.5, 32 and
+    64 steps): order above 1.7 (tests/test_ts.py:100)."""
+    from petiga_tpu_torch.solve.ts import Alpha2Stepper, integrate
+
+    sp, sin, project, error = _heat_problem(16, 2)
+
+    def wave(pt, sA, Ae, sV, Ve, t, Ue, ctx):
+        return pt.value(Ae)[0] * pt.shape0 + pt.shape1 @ pt.grad(Ue)[0]
+
+    U0, A0 = project(sin), project(lambda x: sin(x, -math.pi**2))
+    T, e = 0.5, []
+    for n in (32, 64):
+        st = Alpha2Stepper(sp, wave, rho_inf=0.9, newton_kw=dict(rtol=1e-12, operator="fast"))
+        U, _, _ = integrate(st, U0, 0.0, T / n, n, V0=torch.zeros_like(U0), A0=A0)
+        e.append(error(U, math.cos(math.pi * T)))
+    rate = float(np.log2(e[0] / e[1]))
+    check("transient:alpha2:order", rate > 1.7, value=rate, errors=e, want="> 1.7")
+    return {"rate": rate}
+
+
+def tr_rk3():
+    """SSP-RK3 on the heat problem (nel 64, p 2, dt 2e-5, 200 steps),
+    every stage a consistent-mass Jacobi-CG on the kernel: L2 error below
+    2e-4 (tests/test_ts.py:149)."""
+    from petiga_tpu_torch.solve.ts import ExplicitStepper, integrate
+
+    sp, sin, project, error = _heat_problem(64, 2)
+
+    def rhs(pt, t, Ue, ctx):
+        return -(pt.shape1 @ pt.grad(Ue)[0])
+
+    dt, n = 2e-5, 200
+    U = integrate(ExplicitStepper(sp, rhs, scheme="rk3"), project(sin), 0.0, dt, n)
+    err = error(U, math.exp(-math.pi**2 * n * dt))
+    check("transient:rk3:error", err < 2e-4, value=err, want="< 2e-4")
+    return {"l2_error": err}
+
+
+def tr_shallowwater(nel=64):
+    """Shallow water, periodic dof 3, 4 steps of 0.005: the water volume
+    to 1e-6, the hump's peak falls (tests/test_models_misc.py:12)."""
+    from petiga_tpu_torch.models import shallowwater as sw
+
+    U0, U = sw.run(sw.make_space(nel=nel), dt=0.005, nsteps=4)
+    dev = abs(float(U[:, 0].mean()) - float(U0[:, 0].mean())) / float(U0[:, 0].mean())
+    peak = (float(U[:, 0].max()), float(U0[:, 0].max()))
+    check("transient:shallowwater", bool(torch.isfinite(U).all()) and dev <= 1e-6
+          and peak[0] < peak[1], mass_rel_dev=dev, peak=peak)
+    return {"mass_rel_dev": dev, "peak": peak}
+
+
+def tr_richards(nel1=32, nel2=64):
+    """Richards, backward Euler, 5 steps of 1e-3 from ψ = −2, in 1-D
+    (nel 32) and 2-D (nel²): the ponded top at ψ ≥ −1e-6, the bottom still
+    dry (ψ < −1.8), ψ within [−2.3, 0.1] (tests/test_models_misc.py:24)."""
+    from petiga_tpu_torch.models import richards
+
+    out = {}
+    for dim, nel in ((1, nel1), (2, nel2)):
+        sp = richards.make_space(nel=nel, dim=dim)
+        _, U = richards.run(sp, dt=1e-3, nsteps=5)
+        g = U.reshape(sp.node_shape[::-1])  # the last axis first
+        top, bottom = float(g[-1].min()), float(g[0].max())
+        lo, hi = float(U.min()), float(U.max())
+        out[f"{dim}d"] = {"top_min": top, "bottom_max": bottom, "min": lo, "max": hi}
+        check(f"transient:richards:{dim}d", top > -1e-6 and bottom < -1.8 and lo >= -2.3
+              and hi <= 0.1, **out[f"{dim}d"])
+    return out
+
+
+def tr_pfc(nel=64):
+    """Phase-field crystal, periodic [0, 16π]², dof 2, order 2, 2 steps of
+    0.05: φ's mean to 1e-7 (tests/test_models_misc.py:36)."""
+    from petiga_tpu_torch.models import phasefieldcrystal as pfc
+
+    sp = pfc.make_space(nel=nel)
+    U0 = pfc.initial_condition(sp, seed=5)
+    U = pfc.run(sp, U0, dt=0.05, nsteps=2)
+    dev = abs(float(U[:, 0].mean()) - float(U0[:, 0].mean())) / abs(float(U0[:, 0].mean()))
+    moved = float((U - U0).abs().max())
+    check("transient:pfc", bool(torch.isfinite(U).all()) and dev <= 1e-7, mass_rel_dev=dev,
+          max_change=moved)
+    return {"mass_rel_dev": dev, "max_change": moved}
+
+
+def tr_nsk(nel=64):
+    """Navier–Stokes–Korteweg, the van der Waals bubble, 2 steps of 5e-5:
+    ρ within (0.05, 0.95), mass to 1e-6 (tests/test_models_misc.py:47)."""
+    from petiga_tpu_torch.models import nsk
+
+    sp = nsk.make_space(nel=nel)
+    U0 = nsk.vdw_bubble_ic(sp)
+    U = nsk.run(sp, U0, dt=5e-5, nsteps=2)
+    rho = (float(U[:, 0].min()), float(U[:, 0].max()))
+    dev = abs(float(U[:, 0].mean()) - float(U0[:, 0].mean())) / float(U0[:, 0].mean())
+    check("transient:nsk", bool(torch.isfinite(U).all()) and 0.05 < rho[0] and rho[1] < 0.95
+          and dev <= 1e-6, rho_min_max=rho, mass_rel_dev=dev)
+    return {"rho_min_max": rho, "mass_rel_dev": dev}
+
+
+def tr_twophase(nel=256):
+    """Two-phase flow, 1-D p 1 dof 2, 4 steps of 0.02: hydrogen at the
+    injection face, none at the fixed face (tests/test_models_misc.py:63)."""
+    from petiga_tpu_torch.models import twophase
+
+    _, U = twophase.run(twophase.make_space(nel=nel), dt=0.02, nsteps=4)
+    left, right = float(U[0, 1]), float(U[-1, 1])
+    check("transient:twophase", bool(torch.isfinite(U).all()) and left > 1e-4
+          and abs(right) < 1e-8, left=left, right=right)
+    return {"rho_lh_left": left, "rho_lh_right": right}
+
+
+def tr_patternformation(nel=128):
+    """Pattern formation, periodic dof 2, 2 steps of 0.005 in each
+    splitting: the fields move and stay below 10
+    (tests/test_models_transient.py:15)."""
+    from petiga_tpu_torch.models import patternformation as pf
+
+    sp = pf.make_space(nel=nel)
+    U0 = pf.initial_condition(sp, seed=3)
+    out = {}
+    for implicit in (True, False):
+        U = pf.run(sp, U0, dt=0.005, nsteps=2, implicit=implicit)
+        out[f"implicit_{implicit}"] = (float((U - U0).abs().max()), float(U.abs().max()))
+        check(f"transient:patternformation:implicit_{implicit}", bool(torch.isfinite(U).all())
+              and out[f"implicit_{implicit}"][0] > 1e-8 and out[f"implicit_{implicit}"][1] < 10,
+              change_and_max=out[f"implicit_{implicit}"])
+    return out
+
+
+def tr_elasticrod(nel=512):
+    """The plucked rod, generalized-α2, 20 steps of 0.01: |u| < 1.5, the
+    clamped ends at 0 (1e-12), the center below 1
+    (tests/test_models_transient.py:26)."""
+    from petiga_tpu_torch.models import elasticrod as rod
+
+    U, _, _ = rod.run(rod.make_space(nel=nel), dt=0.01, nsteps=20)
+    u = U.reshape(-1).cpu().numpy()
+    out = {"max_abs": float(np.abs(u).max()), "ends": (float(u[0]), float(u[-1])),
+           "center": float(u[len(u) // 2])}
+    check("transient:elasticrod", np.isfinite(u).all() and out["max_abs"] < 1.5
+          and max(map(abs, out["ends"])) <= 1e-12 and abs(out["center"]) < 1.0, **out)
+    return out
+
+
+def _plate_solve(sp, system, ctx, maxiter=10000):
+    from petiga_tpu_torch.assembly.assemble import assemble_system
+    from petiga_tpu_torch.solve.krylov import cg, jacobi_preconditioner
+
+    A, b = assemble_system(sp, system, ctx)
+    res = cg(A.fast_operator(), b, M=jacobi_preconditioner(A), rtol=1e-12, maxiter=maxiter)
+    return res.x, res.iters
+
+
+def tr_laplace_beltrami(nel=64):
+    """The surface Laplacian on the plate tilted by 0.7 rad against the
+    untilted plate, unit source, fixed edges: equal to 1e-10, maximum
+    above 0.05 (tests/test_manifold.py:20)."""
+    from petiga_tpu_torch.models import shell
+
+    sols, iters = [], []
+    for tilt in (None, 0.7):
+        sp = shell.make_plate_space(nel=nel, p=2, tilt=tilt)
+        for d in range(2):
+            for s in range(2):
+                sp.set_boundary_value(d, s, 0, 0.0)
+        x, it = _plate_solve(sp, shell.laplace_beltrami_system, {"forcing": lambda x: 1.0})
+        sols.append(x)
+        iters.append(it)
+    diff, top = float((sols[0] - sols[1]).abs().max()), float(sols[0].max())
+    check("transient:laplace_beltrami", diff <= 1e-10 and top > 0.05, max_diff=diff, max=top)
+    return {"cg_iters": iters, "max_diff": diff, "max": top}
+
+
+def tr_kirchhoff(nel=32):
+    """The clamped Kirchhoff plate, p 3, unit load, D = 1: w_max =
+    0.00126 ± 3 % (tests/test_manifold.py:46)."""
+    from petiga_tpu_torch.models import shell
+
+    sp = shell.clamp_plate(shell.make_plate_space(nel=nel, p=3))
+    w, it = _plate_solve(sp, shell.kl_shell_system, {"D": 1.0, "load": 1.0}, maxiter=20000)
+    wmax = float(w.max())
+    check("transient:kirchhoff", abs(wmax - 0.00126) <= 0.03 * 0.00126, w_max=wmax,
+          want="0.00126 +- 3 %")
+    return {"cg_iters": it, "w_max": wmax}
+
+
+def _exact_sin(x):
+    return torch.prod(torch.sin(math.pi * x + 0.3), dim=-1, keepdim=True)
+
+
+def _forcing_sin(x):
+    return 2 * math.pi**2 * torch.prod(torch.sin(math.pi * x + 0.3), dim=-1)
+
+
+def tr_nitsche(nels=(64, 128)):
+    """Nitsche's weak Dirichlet on -Δu = f, p 2: L2 rate 3 ± 0.25
+    (tests/test_boundary_forms.py:30)."""
+    from petiga_tpu_torch.assembly.assemble import compute_error_norm
+    from petiga_tpu_torch.models import boundary
+
+    errs, iters = [], []
+    for nel in nels:
+        sp = boundary.make_open_space(2, p=2, nel=nel)
+        U, info = boundary.nitsche_poisson(sp, _exact_sin, _forcing_sin)
+        errs.append(float(compute_error_norm(sp, U, _exact_sin)))
+        iters.append(info["iters"])
+    rate = float(np.log2(errs[0] / errs[1]))
+    check("transient:nitsche:rate", abs(rate - 3) < 0.25, value=rate, errors=errs,
+          want="3 +- 0.25")
+    return {"cg_iters": iters, "l2_errors": errs, "rate": rate}
+
+
+def tr_boundary_integral(nels=(8, 16)):
+    """The natural flux by a surface integral on the x faces, strong
+    values on the y faces from the projected exact solution: L2 rate
+    3 ± 0.4, the finer error below 5e-4 (tests/test_boundary_forms.py:40)."""
+    from petiga_tpu_torch.assembly.assemble import compute_error_norm
+    from petiga_tpu_torch.models import boundary
+    from petiga_tpu_torch.models.projection import l2_project
+
+    def flux(x, n):
+        gx = math.pi * torch.cos(math.pi * x[0] + 0.3) * torch.sin(math.pi * x[1] + 0.3)
+        gy = torch.sin(math.pi * x[0] + 0.3) * math.pi * torch.cos(math.pi * x[1] + 0.3)
+        return gx * n[0] + gy * n[1]
+
+    errs = []
+    for nel in nels:
+        sp = boundary.make_open_space(2, p=2, nel=nel)
+        sp.bc_visit = [[True, True], [False, False]]
+        sp.set_fix_table(l2_project(sp, _exact_sin).cpu().numpy())
+        sp.set_boundary_value(1, 0, 0, 0.0)
+        sp.set_boundary_value(1, 1, 0, 0.0)
+        U, _ = boundary.boundary_integral_poisson(sp, _forcing_sin, flux, fixed_faces=[])
+        errs.append(float(compute_error_norm(sp, U, _exact_sin)))
+    rate = float(np.log2(errs[0] / errs[1]))
+    check("transient:boundary_integral", abs(rate - 3) < 0.4 and errs[-1] < 5e-4, rate=rate,
+          errors=errs, want="3 +- 0.4, finer < 5e-4")
+    return {"l2_errors": errs, "rate": rate}
+
+
+def tr_adaptive():
+    """Greedy adaptive L2 projection of the reference's off-center
+    Gaussian, p 2, from 3 × 3 spans, 3 insertions: the error falls at
+    every insertion and below 0.3 of the first, the axis-0 breaks denser
+    near x = 0.85 (tests/test_models_misc.py:75)."""
+    from petiga_tpu_torch.models.adaptive import adaptive_l2_projection
+
+    def f(x):
+        return torch.exp(-((x[..., 0:1] - 0.85) ** 2 / 0.03125
+                           + (x[..., 1:2] - 0.45) ** 2 / 0.08))
+
+    sp, _, hist = adaptive_l2_projection(f, dim=2, p=2, n0=3, iters=3)
+    b0 = np.asarray(sp.axes[0].U)
+    dense = (int(((b0 > 0.6) & (b0 < 1.0)).sum()), int(((b0 > 0.0) & (b0 < 0.4)).sum()))
+    check("transient:adaptive", all(hist[i + 1] < hist[i] for i in range(len(hist) - 1))
+          and hist[-1] < 0.3 * hist[0] and dense[0] > dense[1], history=hist, breaks=dense)
+    return {"history": hist}
+
+
+TRANSIENT = (("ts_theta", tr_theta), ("ts_alpha2", tr_alpha2), ("ts_rk3", tr_rk3),
+             ("shallowwater", tr_shallowwater), ("richards", tr_richards), ("pfc", tr_pfc),
+             ("nsk", tr_nsk), ("twophase", tr_twophase),
+             ("patternformation", tr_patternformation), ("elasticrod", tr_elasticrod),
+             ("laplace_beltrami", tr_laplace_beltrami), ("kirchhoff", tr_kirchhoff),
+             ("nitsche", tr_nitsche), ("boundary_integral", tr_boundary_integral),
+             ("adaptive_l2", tr_adaptive))
+
+
+def phase_transient():
+    """Each model of :data:`TRANSIENT` on its own counted path, f64,
+    held to its JAX test's criterion; one line per model with its
+    seconds."""
+    for name, fn in TRANSIENT:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counted(name):
+            out = fn()
+        emit({"phase": f"transient_{name}", "seconds": sync_s(t0),
+              "launches": PHASE_LAUNCHES[name]["full"], **out})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
@@ -1537,13 +2072,37 @@ def main():
         with counted(name):
             fn()
         PHASE_SECONDS[name] = time.perf_counter() - t0
+
+    # ------------- the steppers and the remaining models; adaptive CH at 512²
+    for nel in (512, 256):
+        t0 = time.perf_counter()
+        with counted(f"ch_adapt{nel}"):
+            out = phase_ch_adapt(nel)
+        if nel == 512:
+            sp_a, U_a, dt_a = out
+        del out
+        PHASE_SECONDS[f"ch_adapt{nel}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op_a = ch_jacobian(ch, sp_a, U_a, dt_a)
+    xb = op_a.pack_vec(torch.randn(sp_a.nnodes, 1, dtype=torch.float64, device="cuda",
+                                   generator=torch.Generator("cuda").manual_seed(3)))
+    lib = library_csr_ms(op_a, xb, "ch_adapt512_f64", sp_a.nnodes * op_a.nplanes)
+    kernels.append(kernel_row("stencil_spmv_full", op_a, "ch_adapt512_f64", f"{PALLAS}:303",
+                              xb, lib))
+    del op_a, xb, U_a
+    PHASE_SECONDS["ch_adapt_timing"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_transient()
+    PHASE_SECONDS["transient"] = time.perf_counter() - t0
     emit({"phase": "seconds", **PHASE_SECONDS, "total": time.perf_counter() - t_start})
 
     emit({"phase": "launches", **PHASE_LAUNCHES})
     # each kernel is launched on every counted path
     for kind, phases in (("full", ("m128", "m256", "m128_refine", "pointwise", "entry", "ch64",
                                    "ch128", "nonlinear_f64", "elast96", "elast_f64",
-                                   "precond", "hyper", "ns")),
+                                   "precond", "hyper", "ns", "ch_adapt512",
+                                   "ch_adapt256")
+                          + tuple(name for name, _ in TRANSIENT)),
                          ("sym", ("m256", "m256_refine", "elast96"))):
         for ph in phases:
             check(f"launches:{kind}:{ph}", PHASE_LAUNCHES[ph][kind] > 0,

@@ -146,10 +146,13 @@ def state_from_reference(state, dtype=torch.float64, device=None):
     vector ``(nnodes, dof)`` or ``(nnodes,)``) becomes a tensor of
     ``dtype`` on ``device``, a 0-d array a Python float; a dict (an
     ``aux`` dict of node vectors, a model's ``ctx``) is converted entry by
-    entry; Python numbers pass through."""
+    entry, a tuple or list (a stepper's ``(U, V)`` or ``(U, V, A)``)
+    item by item into a tuple; Python numbers and None pass through."""
     if isinstance(state, dict):
         return {k: state_from_reference(v, dtype, device) for k, v in state.items()}
-    if isinstance(state, (int, float)):
+    if isinstance(state, (tuple, list)):
+        return tuple(state_from_reference(v, dtype, device) for v in state)
+    if state is None or isinstance(state, (int, float)):
         return state
     a = np.array(state)
     return float(a) if a.ndim == 0 else _torch(a, dtype, device)

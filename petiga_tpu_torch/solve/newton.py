@@ -9,6 +9,7 @@ iteration counts are the reference's; each iteration reads ``‖F‖`` once.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -46,6 +47,7 @@ def newton(
     operator: str = "stencil",
     jfnk_pc: Optional[Callable] = None,
     monitor: Optional[Callable] = None,
+    counters: Optional[dict] = None,
 ) -> NewtonResult:
     """Solve F(U) = 0 by Newton's method with an inner Krylov solve.
 
@@ -63,7 +65,12 @@ def newton(
     preconditioned by ``jfnk_pc(U) -> (r -> M⁻¹r)`` when given.
     ``linear_solver``: ``"cg"``, ``"bicgstab"`` or ``"gmres"``.
     ``monitor(k, fnorm, linear_iters)`` is called after the initial
-    residual (``linear_iters`` None) and after each iteration."""
+    residual (``linear_iters`` None) and after each iteration.
+    ``counters`` (a dict) collects per call the residual norms ``rhist``,
+    the linear iterations ``lin_iters`` and the seconds of each residual,
+    Jacobian assembly and linear solve (``residual_s``, ``jacobian_s``,
+    ``solve_s``); with counters the device is synchronised before each
+    reading."""
     shape = (space.nnodes, space.dof)
     U = U0.reshape(shape)
     solver = {"cg": cg, "bicgstab": bicgstab, "gmres": gmres}[linear_solver]
@@ -74,8 +81,24 @@ def newton(
         return assemble_function(space, function, V, ctx, aux=aux, order=order,
                                  chunk=chunk, boundary=boundary)
 
+    t_res, t_jac, t_sol, rhist, lin = [], [], [], [], []
+
+    def stamp(times, t0):
+        """Seconds since ``t0`` into ``times``, the device synchronised;
+        returns the new time origin."""
+        if counters is None:
+            return t0
+        if U.device.type == "cuda":
+            torch.cuda.synchronize(U.device)
+        t1 = time.perf_counter()
+        times.append(t1 - t0)
+        return t1
+
+    t0 = stamp([], 0.0)
     F = resid(U)
     fnorm = torch.linalg.vector_norm(F).item()
+    t0 = stamp(t_res, t0)
+    rhist.append(fnorm)
     tol = max(rtol * fnorm, atol)
     if monitor is not None:
         monitor(0, fnorm, None)
@@ -93,11 +116,20 @@ def newton(
             M = jacobi_preconditioner(A)
             if operator == "fast":
                 A = A.fast_operator()
+        t0 = stamp(t_jac, t0)
         res = solver(A, F, M=M, rtol=linear_rtol)
+        t0 = stamp(t_sol, t0)
         U = U - damping * res.x.reshape(shape)
         F = resid(U)
         fnorm = torch.linalg.vector_norm(F).item()
+        t0 = stamp(t_res, t0)
+        rhist.append(fnorm)
+        lin.append(res.iters)
         k += 1
         if monitor is not None:
             monitor(k, fnorm, res.iters)
+    if counters is not None:
+        for key, val in (("rhist", rhist), ("lin_iters", lin), ("residual_s", t_res),
+                         ("jacobian_s", t_jac), ("solve_s", t_sol)):
+            counters.setdefault(key, []).append(val)
     return NewtonResult(U=U, iters=k, fnorm=fnorm, converged=fnorm <= tol)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's vector-class phases on the CPU at small sizes.
+"""Rehearse chip_smoke.py's later phases on the CPU at small sizes.
 
 The phases are written for the CUDA device; this script points the
 port's default device at the CPU, replaces the CUDA timing calls by host
@@ -10,6 +10,7 @@ here is a device time.
 
     python3 scripts/torch_cpu_rehearsal.py elast f64 precond hyper ns
     python3 scripts/torch_cpu_rehearsal.py mg-band      # MG/BJ counts, 8³-32³ f32
+    python3 scripts/torch_cpu_rehearsal.py ch-adapt transient
 
 Prints each phase's JSON lines and, last, the failed checks; exits 1 if
 any failed.
@@ -67,10 +68,31 @@ def mg_band(chip_smoke, nels=(8, 16, 24, 32)):
                          "mg_iters": mg.iters, "bj_iters": bj.iters})
 
 
+# the transient models at CPU sizes (the 1-D stepper cases run at their
+# chip sizes); the Kirchhoff plate's 3 % band belongs to 32², so its
+# check may fail at 8²
+TRANSIENT_SMALL = {
+    "shallowwater": dict(nel=8), "richards": dict(nel1=16, nel2=8), "pfc": dict(nel=8),
+    "nsk": dict(nel=8), "twophase": dict(nel=32), "patternformation": dict(nel=8),
+    "elasticrod": dict(nel=32), "laplace_beltrami": dict(nel=8), "kirchhoff": dict(nel=8),
+    "nitsche": dict(nels=(8, 16)),
+}
+
+
+def transient(chip_smoke):
+    for name, fn in chip_smoke.TRANSIENT:
+        t0 = time.perf_counter()
+        with chip_smoke.counted(name):
+            out = fn(**TRANSIENT_SMALL.get(name, {}))
+        chip_smoke.emit({"phase": f"transient_{name}", "host_s": time.perf_counter() - t0,
+                         "launches_plain": chip_smoke.PHASE_LAUNCHES[name]["full"], **out})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="+",
-                    choices=["elast", "f64", "precond", "hyper", "ns", "mg-band"])
+                    choices=["elast", "f64", "precond", "hyper", "ns", "mg-band", "ch-adapt",
+                             "transient"])
     args = ap.parse_args(argv)
     _on_the_cpu()
     import chip_smoke as cs
@@ -90,6 +112,10 @@ def main(argv=None):
             cs.phase_hyper(nel=3, nel_big=4)
         elif ph == "ns":
             cs.phase_ns(nel_cavity=12, nel_tg=8)
+        elif ph == "ch-adapt":
+            cs.phase_ch_adapt(nel=8, expect={"outcome": "t_end"})
+        elif ph == "transient":
+            transient(cs)
         else:
             mg_band(cs)
         cs.emit({"rehearsal": ph, "host_s": time.perf_counter() - t0})

@@ -30,6 +30,10 @@ KERNEL_CASES = [
     ((6, 7, 5), (2, 2, 2), (False,) * 3, 4, False),
     ((6, 7, 5), (2, 2, 2), (False,) * 3, 4, True),
     ((7, 6), (2, 2), (True, False), 4, False),
+    ((7, 7), (2, 2), (True, True), 3, False),  # nsk, shallow water
+    ((7, 7), (2, 2), (True, True), 2, False),  # pattern formation, PFC
+    ((17,), (1,), (False,), 2, False),  # two-phase flow
+    ((11, 11), (3, 3), (False, False), 1, False),  # the Kirchhoff plate
 ]
 
 
