@@ -106,7 +106,48 @@ entry points at the sizes its users run:
         two-phase flow, pattern formation, the elastic rod, Laplace–Beltrami
         and the Kirchhoff plate on manifolds, Nitsche and boundary-integral
         conditions and adaptive L2 projection, each on its own counted path
-        at a small size, f64, held to its JAX test's criterion.
+        at a small size, f64, held to its JAX test's criterion;
+  mapped128, nurbs128
+        the ``-iga_load`` flow at full width, f32: a 128³ p=2 space with its
+        Greville control points warped by ``x += 0.05 Π sin(πx_i)`` (and, in
+        the NURBS variant, weights ``1 + 0.3 Π sin(πG_i)``) written by the
+        port's ``write_space`` and read back through
+        ``Options(load=...).build_space()``; conv planes (full, and
+        symmetric without weights) against the pointwise engine's (1e-5 of
+        the largest entry), full against symmetric products (1e-5),
+        Jacobi-CG to rtol 1e-6 on each kernel with the true residual within
+        30x its floor; in f64 at 32³ and 64³ the L2 error at order 3 ± 0.15
+        and within 1e-8 of the JAX package's (``GEOMETRY_REF``, from
+        ``scripts/torch_geometry_reference.py``);
+  colloc
+        Poisson collocation at 128³ in f32 from ``bind_cli([... "--collocation"])``,
+        Jacobi-BiCGStab to rtol 1e-5 on the full kernel (125-slot
+        nonsymmetric stencil), the true residual within 30x its floor (the
+        f64 BiCGStab solution on the f64 kernel, rounded to f32); in f64 at
+        32³ and 64³ the L2 error on a Galerkin clone within 1e-8 of the JAX
+        package's, and the rate;
+  bratu_colloc
+        Bratu collocation, 2-D p=2 256² f64, λ = 4: Newton with the AD
+        collocation Jacobian and Jacobi-BiCGStab on the f64 kernel to
+        ‖F‖ < 1e-10 ‖F₀‖; max U within 1e-9 and the Newton count within one
+        of the JAX package's;
+  separable256
+        ``assemble_separable_planes`` at 256³ against the conv planes and
+        load vector (1e-6 of the largest entry; 1e-12 in f64 at 16³ with
+        c = 0.4, κ = 1.3), Jacobi-CG to rtol 1e-8 on the full kernel with
+        its true residual within 30x its floor; its CG count and L2 error
+        printed beside m256's, unchecked;
+  io_post
+        PetIGA binary vectors and spaces round-trip bit for bit (the mapped
+        solution read back gives the same residual through the kernel),
+        the seeded 8³ NURBS files' SHA-256 equal the JAX package's,
+        ``Probe``/``FixedProbe`` reproduce a linear field at 4096 points
+        on the m128 and mapped spaces and the pointwise tabulation on the
+        mapped solution, ``sample_grid`` + ``write_vts`` parsed back;
+  log_view
+        ``profiling.log_view()`` of the events these phases counted and
+        timed (CUDA events), after 20 timed ``MatMult`` products of the
+        mapped operator.
 
 The elasticity rows of the kernel table are timed on the 96³ operator
 (dof 3: 1125 planes full, 567 symmetric); their library call is a CSR
@@ -146,7 +187,7 @@ Usage, from the repository root, on a machine with one CUDA GPU:
     python3 chip_smoke.py
 
 Prints one JSON line per phase (and the wall seconds of each block of
-phases), the ``nvidia-smi`` name/power-limit line,
+phases), the ``log_view`` table, the ``nvidia-smi`` name/power-limit line,
 a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Exits non-zero, without that last line, when no CUDA device is present
 or any phase fails.
@@ -158,6 +199,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -372,7 +414,8 @@ def solve_quality(poisson, sp, op, b, U):
     out = {"true_rel_residual": rel_res(U), "floor_rel_residual": rel_res(U64.float()),
            "rel_err_vs_f64_solve": float(torch.linalg.vector_norm(U.double() - U64)
                                          / torch.linalg.vector_norm(U64)),
-           "f64_solve_iters": res.iters, "l2_error_f64_solve": poisson.l2_error(sp, U64.float())}
+           "f64_solve_iters": res.iters,
+           "l2_error_f64_solve": poisson.l2_error(sp, U64.float(), chunk=65536)}
     del op64, U64
     return out
 
@@ -669,8 +712,9 @@ def library_csr_ms(op, xb, shape, structural_nnz, min_frac=0.9):
 def kernel_row(name, op, shape, replaces, xb, library_ms):
     """One row of the kernel table: the kernel against its plain version
     on ``xb``, both timed (kernel, plain, kernel, plain: 20 calls each),
-    its bound and the library call's ms; ``launches`` is filled in at
-    the end of the run."""
+    the kernel's median over 5 × 20 calls and its time per product in a
+    back-to-back loop of 200, its bound and the library call's ms;
+    ``launches`` is filled in at the end of the run."""
     from petiga_tpu_torch.sparse import spmv
 
     sym = op.kind == "sym"
@@ -684,6 +728,11 @@ def kernel_row(name, op, shape, replaces, xb, library_ms):
         runs["ms"].append(time_ms(lambda: fn(op.DT, xb, op._shift_t, op.G, out=yb), reps=20))
         runs["plain_ms"].append(time_ms(lambda: plain(op.DT, xb, shifts, op.G, yb), reps=20))
     ms, plain_ms = min(runs["ms"]), min(runs["plain_ms"])
+    # beside the best of 2 x 20: the median of 5 x 20 calls, and the time
+    # per product inside one back-to-back loop of 200 products
+    median_ms = float(np.median([time_ms(lambda: fn(op.DT, xb, op._shift_t, op.G, out=yb),
+                                         reps=20) for _ in range(5)]))
+    loop_ms = time_ms(lambda: fn(op.DT, xb, op._shift_t, op.G, out=yb), reps=200)
     # the least time the card could take: the planes' node columns and x
     # read once, y written once (a periodic layout's halo columns hold
     # zeros the product does not need), against 2 operations per stored
@@ -700,6 +749,9 @@ def kernel_row(name, op, shape, replaces, xb, library_ms):
            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": library_ms, "shape": shape, "dof": op.dof, "planes": op.nplanes,
+           "median_ms": median_ms, "loop_ms": loop_ms,
+           "median_bound_frac": max(t_bytes, t_ops) / median_ms,
+           "loop_bound_frac": max(t_bytes, t_ops) / loop_ms,
            "rel_err": rel_err, "plane_GB_s": gbps, "plane_roofline_frac": gbps / 3350.0,
            "plane_bound_ms": 1e3 * need / HBM_BYTES_S, "planes_needed_GB": need / 1e9,
            "planes_streamed_GB": op.plane_bytes / 1e9}
@@ -1894,6 +1946,494 @@ def phase_transient():
               "launches": PHASE_LAUNCHES[name]["full"], **out})
 
 
+# ------------------------------------------- the single-device user surface
+# The JAX package's values for the phases below, made on the CPU in f64 by
+# scripts/torch_geometry_reference.py (one case per process).
+GEOMETRY_REF = {
+    "mapped_l2": {32: 2.9613182011190706e-06, 64: 3.6891084036118847e-07},
+    "colloc_l2": {32: 0.00014223533101202182, 64: 3.5511951825098976e-05},
+    "bratu256": {"newton_iters": 4, "max_u": 0.3955277143729947},
+    "space_sha256": "ef87d329147674d9f63cf513e12a0e108c0e8089a4bc9d45b45eb600be45b4a3",
+    "vec_sha256": "ed0e3d12feb6632fcaae3bdbd2880c487468e3b80473b1b9d9aaf82f6e7155fc",
+}
+GEOMETRY_L2_RTOL = 1e-8
+COEF = {"c": 0.0, "k": 1.0}
+
+
+def warp(G):
+    """The warp of ``scripts/torch_geometry_reference.py``: the Greville
+    control points ``G`` (nnodes, 3) moved by ``0.05 Π sin(πG_i)`` along
+    the first axis.  Boundary points stay on their faces, so the domain is
+    the unit cube and det J ≥ 1 - 0.05π."""
+    X = np.array(G, dtype=np.float64)
+    X[:, 0] += 0.05 * np.prod(np.sin(np.pi * G), axis=1)
+    return X
+
+
+def nurbs_weights(G):
+    return 1.0 + 0.3 * np.prod(np.sin(np.pi * G), axis=1)
+
+
+def loaded_space(nel, dtype, nurbs, tmpdir):
+    """The ``-iga_load`` flow: a p=2 space of ``nel``³ elements under :func:`warp`
+    (and NURBS weights) written by the port's ``write_space``, read back
+    through ``Options(load=...).build_space()``, homogeneous Dirichlet on
+    every face."""
+    from petiga_tpu_torch import config
+    from petiga_tpu_torch.io.checkpoint import write_space
+    from petiga_tpu_torch.models import poisson
+
+    sp = poisson.make_space(3, p=2, nel=nel, dtype=dtype)
+    G = sp.greville_coordinates()
+    sp.init_geometry(warp(G), nurbs_weights(G) if nurbs else None)
+    path = f"{tmpdir}/geometry_{nel}_{'nurbs' if nurbs else 'mapped'}.dat"
+    write_space(sp, path)
+    out = config.Options(load=path, dtype=str(dtype)[6:]).build_space()
+    for d in range(3):
+        for s in range(2):
+            out.set_boundary_value(d, s, 0, 0.0)
+    return out
+
+
+def mapped_assemble(sp, name, symmetric=False):
+    """Conv planes and load vector of the manufactured problem on a
+    mapped space, timed as a log event (CUDA events)."""
+    from petiga_tpu_torch.assembly.convform import assemble_coefficient_planes, poisson_coefficients
+    from petiga_tpu_torch.models import poisson
+    from petiga_tpu_torch.utils import profiling
+
+    return profiling.timed(name, assemble_coefficient_planes, sp, poisson_coefficients, COEF,
+                           forcing=poisson.poisson_forcing(), symmetric=symmetric,
+                           flops=profiling.system_flops(sp))
+
+
+def phase_mapped(nel=128, nurbs=False, tmpdir="."):
+    """``mapped128`` (and its NURBS variant): the ``-iga_load`` flow at
+    full width in f32.  Conv planes (full; symmetric too without weights)
+    against the pointwise engine's planes of the same form on the same
+    space, Jacobi-CG to rtol 1e-6 on each kernel, each f32 solution's true
+    residual against its floor.  Returns the loaded space and the full
+    solve's solution, with the full operator and load vector."""
+    from petiga_tpu_torch.assembly.assemble import assemble_system_planes
+    from petiga_tpu_torch.assembly.convform import coefficient_pointwise_form, poisson_coefficients
+    from petiga_tpu_torch.models import poisson
+    from petiga_tpu_torch.utils import profiling
+
+    tag = f"{'nurbs' if nurbs else 'mapped'}{nel}"
+    row = {"phase": tag}
+    t0 = time.perf_counter()
+    sp = loaded_space(nel, torch.float32, nurbs, tmpdir)
+    row["load_s"] = time.perf_counter() - t0
+    op, b = mapped_assemble(sp, f"{tag}.conv_full")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    op, b = mapped_assemble(sp, f"{tag}.conv_full")
+    row["assembly_full_s"] = sync_s(t0)
+    form = coefficient_pointwise_form(poisson_coefficients, poisson.poisson_forcing())
+    t0 = time.perf_counter()
+    op_pw, b_pw = profiling.timed(f"{tag}.pointwise", assemble_system_planes, sp, form, COEF,
+                                  chunk=65536, order=1, flops=profiling.system_flops(sp))
+    row["assembly_pointwise_s"] = sync_s(t0)
+    rel = planes_rel_diff(op.DT, op_pw.DT)
+    rel_b = float((b - b_pw).abs().max() / b_pw.abs().max())
+    del op_pw, b_pw
+    row.update({"conv_vs_pointwise_rel": rel, "load_conv_vs_pointwise_rel": rel_b})
+    check(f"{tag}:conv_vs_pointwise", rel <= 1e-5 and rel_b <= 1e-5, value=rel, load=rel_b,
+          want="<= 1e-5 of the largest entry")
+    solves = {"full": op}
+    if not nurbs:
+        t0 = time.perf_counter()
+        op_sym, _ = mapped_assemble(sp, f"{tag}.conv_sym", symmetric=True)
+        row["assembly_sym_s"] = sync_s(t0)
+        probe = torch.as_tensor(
+            np.random.default_rng(0).normal(size=(sp.nnodes, 1)).astype(np.float32),
+            device=sp.device)
+        y_full, y_sym = op.matvec(probe), op_sym.matvec(probe)
+        mrel = float((y_sym - y_full).abs().max() / y_full.abs().max())
+        del y_full, y_sym, probe
+        row["full_vs_sym_matvec_rel"] = mrel
+        check(f"{tag}:full_vs_sym_matvec_rel", mrel <= 1e-5, value=mrel, want="<= 1e-5")
+        solves["sym"] = op_sym
+    U_full = None
+    for kind, o in solves.items():
+        U, res = profiling.timed(f"{tag}.cg_{kind}", poisson.solve_system, o, b, rtol=1e-6,
+                                 maxiter=4000)
+        q = solve_quality(poisson, sp, o, b, U)
+        lim = RESIDUAL_OVER_FLOOR * q["floor_rel_residual"]
+        row[f"cg_{kind}"] = {"iters": res.iters, "residual": float(res.residual),
+                             "l2_error": poisson.l2_error(sp, U, chunk=65536), **q}
+        check(f"{tag}:{kind}:true_rel_residual", q["true_rel_residual"] <= lim,
+              value=q["true_rel_residual"], want=f"<= {RESIDUAL_OVER_FLOOR:g} x floor {lim:.3e}")
+        if kind == "full":
+            U_full = U
+    emit(row)
+    return sp, U_full, op, b
+
+
+def phase_mapped_f64(tmpdir, nels=(32, 64)):
+    """The mapped problem in f64 at 32³ and 64³ (symmetric conv planes,
+    Jacobi-CG to rtol 1e-12): the L2 error falls at order 3 and equals
+    the JAX package's to 1e-8."""
+    from petiga_tpu_torch.models import poisson
+
+    l2 = {}
+    for nel in nels:
+        sp = loaded_space(nel, torch.float64, False, tmpdir)
+        op, b = mapped_assemble(sp, f"mapped{nel}_f64.conv_sym", symmetric=True)
+        U, res = poisson.solve_system(op, b, rtol=1e-12, maxiter=20000)
+        l2[nel] = poisson.l2_error(sp, U)
+        ref = GEOMETRY_REF["mapped_l2"][nel]
+        dev = abs(l2[nel] - ref) / ref
+        emit({"phase": f"mapped{nel}_f64", "cg_iters": res.iters, "l2_error": l2[nel],
+              "l2_error_ref": ref, "rel_dev": dev})
+        check(f"mapped{nel}_f64:l2_vs_reference", dev <= GEOMETRY_L2_RTOL, value=l2[nel],
+              ref=ref, rel_dev=dev, want=f"within {GEOMETRY_L2_RTOL:g}")
+    order = float(np.log2(l2[nels[0]] / l2[nels[1]]) / np.log2(nels[1] / nels[0]))
+    check("mapped_f64:l2_order", abs(order - 3.0) <= 0.15, value=order, want="3 +- 0.15")
+
+
+def laplace_colloc(pt, ctx):
+    """-Δu = f at a collocation point, ``u = Π sin(πx_i)``."""
+    dim = pt.x.shape[-1]
+    f = dim * math.pi**2 * torch.prod(torch.sin(math.pi * pt.x))
+    lap = pt.shape2[:, 0, 0]
+    for d in range(1, dim):
+        lap = lap + pt.shape2[:, d, d]
+    return -lap[None, :], f.reshape(1)
+
+
+def colloc_space(argv):
+    """A collocation space from the command line (``bind_cli``), homogeneous
+    Dirichlet on every face."""
+    from petiga_tpu_torch import config
+
+    opts, _ = config.bind_cli(argv + ["--collocation"])
+    sp = opts.build_space()
+    for d in range(sp.dim):
+        for s in range(2):
+            sp.set_boundary_value(d, s, 0, 0.0)
+    return sp
+
+
+def packed_bicgstab(op, b, rtol, maxiter=20000):
+    """Jacobi-BiCGStab on packed vectors through the full stencil kernel;
+    returns (U (nnodes, dof), result)."""
+    from petiga_tpu_torch.solve.krylov import bicgstab
+
+    dinv = op.packed_diag_inv()
+    res = bicgstab(lambda v: op.matvec_xb(op.DT, v), op.pack_vec(b), M=lambda r: r * dinv,
+                   rtol=rtol, maxiter=maxiter)
+    return op.unpack_vec(res.x), res
+
+
+def phase_colloc(nel=128, nels_f64=(32, 64)):
+    """``colloc``: Poisson collocation at 128³ in f32 through ``bind_cli``,
+    Jacobi-BiCGStab to rtol 1e-5 on the full kernel (125-slot nonsymmetric
+    stencil), its true residual against the f64 solution of the same
+    system rounded to f32; then f64 at 32³ and 64³, the L2 error on a
+    Galerkin clone held to the JAX package's."""
+    from petiga_tpu_torch.assembly.collocation import assemble_collocation
+    from petiga_tpu_torch.core.axis import Axis
+    from petiga_tpu_torch.core.space import Space
+    from petiga_tpu_torch.models import poisson
+    from petiga_tpu_torch.sparse.spmv import StencilOperator
+    from petiga_tpu_torch.utils import profiling
+
+    sp = colloc_space(["--dim", "3", "-p", "2", "-N", str(nel), "--dtype", "float32"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    A, b = profiling.timed(f"colloc{nel}.assembly", assemble_collocation, sp, laplace_colloc,
+                           flops=profiling.system_flops(sp))
+    op = A.fast_operator()
+    del A
+    t_asm = sync_s(t0)
+    t0 = time.perf_counter()
+    U, res = profiling.timed(f"colloc{nel}.bicgstab", packed_bicgstab, op, b, 1e-5)
+    t_solve = sync_s(t0)
+    op64 = StencilOperator.from_planes(op.st, op.DT.double())
+    b64 = b.double()
+    bb = op64.pack_vec(b64)
+    bn = torch.linalg.vector_norm(bb)
+
+    def rel_res(v):
+        r = bb - op64.matvec_xb(op64.DT, op64.pack_vec(v.double()))
+        return float(torch.linalg.vector_norm(r) / bn)
+
+    U64, res64 = packed_bicgstab(op64, b64, 1e-10)
+    q = {"true_rel_residual": rel_res(U), "floor_rel_residual": rel_res(U64.float()),
+         "f64_solve_iters": res64.iters}
+    del op64, U64, bb
+    lim = RESIDUAL_OVER_FLOOR * q["floor_rel_residual"]
+    emit({"phase": f"colloc{nel}", "nnodes": sp.nnodes, "assembly_s": t_asm,
+          "bicgstab_iters": res.iters, "bicgstab_residual": float(res.residual),
+          "solve_s": t_solve, "ms_per_iter": 1e3 * t_solve / max(res.iters, 1), **q})
+    check(f"colloc{nel}:true_rel_residual", q["true_rel_residual"] <= lim,
+          value=q["true_rel_residual"], want=f"<= {RESIDUAL_OVER_FLOOR:g} x floor {lim:.3e}")
+    del op
+    l2 = {}
+    for n in nels_f64:
+        spc = colloc_space(["--dim", "3", "-p", "2", "-N", str(n), "--dtype", "float64"])
+        A, b = assemble_collocation(spc, laplace_colloc)
+        U, res = packed_bicgstab(A.fast_operator(), b, 1e-12)
+        spg = Space([Axis.uniform(p=2, nel=n) for _ in range(3)], dtype=torch.float64)
+        l2[n] = poisson.l2_error(spg, U)
+        ref = GEOMETRY_REF["colloc_l2"][n]
+        dev = abs(l2[n] - ref) / ref
+        emit({"phase": f"colloc{n}_f64", "bicgstab_iters": res.iters, "l2_error": l2[n],
+              "l2_error_ref": ref, "rel_dev": dev})
+        check(f"colloc{n}_f64:l2_vs_reference", dev <= GEOMETRY_L2_RTOL, value=l2[n], ref=ref,
+              rel_dev=dev, want=f"within {GEOMETRY_L2_RTOL:g}")
+    n0, n1 = nels_f64
+    emit({"phase": "colloc_f64_rate", "rate": float(np.log2(l2[n0] / l2[n1]) / np.log2(n1 / n0)),
+          "expected": "near 2 (even p)"})
+
+
+def phase_bratu_colloc(nel=256):
+    """``bratu_colloc``: Bratu collocation in 2-D, p=2, 256², f64, λ = 4:
+    Newton from U = 0 with the AD collocation Jacobian and Jacobi-BiCGStab
+    (rtol 1e-10) on the f64 kernel to ‖F‖ < 1e-10 ‖F₀‖ (the f64 residual
+    stalls near 1.2e-9 at 256², in the JAX package too, so an absolute
+    1e-10 is never met); max U and the Newton iterations against the JAX
+    package's run."""
+    from petiga_tpu_torch.assembly.collocation import (
+        assemble_collocation_function, assemble_collocation_jacobian)
+    from petiga_tpu_torch.models.bratu import bratu_collocation_residual
+    from petiga_tpu_torch.utils import profiling
+
+    sp = colloc_space(["--dim", "2", "-p", "2", "-N", str(nel), "--dtype", "float64"])
+    ctx = {"lambda": 4.0}
+    U = torch.zeros((sp.nnodes, 1), dtype=torch.float64, device=sp.device)
+    its, hist, lin = 0, [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        F = profiling.timed("bratu_colloc.function", assemble_collocation_function, sp,
+                            bratu_collocation_residual, U, ctx,
+                            flops=profiling.residual_flops(sp))
+        hist.append(float(torch.linalg.vector_norm(F)))
+        if hist[-1] < 1e-10 * hist[0] or its == 30:
+            break
+        J = profiling.timed("bratu_colloc.jacobian", assemble_collocation_jacobian, sp,
+                            bratu_collocation_residual, U, ctx,
+                            flops=profiling.jacobian_flops(sp))
+        dU, res = packed_bicgstab(J.fast_operator(), F, 1e-10)
+        lin.append(res.iters)
+        U = U - dU
+        its += 1
+    t = sync_s(t0)
+    ref = GEOMETRY_REF["bratu256"]
+    max_u = float(U.max())
+    emit({"phase": f"bratu_colloc{nel}", "newton_iters": its, "fnorm": hist,
+          "bicgstab_iters": lin, "max_u": max_u, "seconds": t, "reference": ref})
+    check("bratu_colloc:converged", hist[-1] < 1e-10 * hist[0], value=hist[-1],
+          want=f"< 1e-10 x {hist[0]:g}")
+    check("bratu_colloc:max_u", abs(max_u - ref["max_u"]) <= 1e-9, value=max_u,
+          ref=ref["max_u"], want="within 1e-9")
+    check("bratu_colloc:newton_iters", abs(its - ref["newton_iters"]) <= 1, value=its,
+          ref=ref["newton_iters"], want="within one")
+
+
+def phase_separable(nel=256, nel_f64=16):
+    """``separable256``: ``assemble_separable_planes`` (c = 0, κ = 1, the
+    m256 forcing) against ``assemble_coefficient_planes``' full planes and
+    load vector (1e-6 of the largest entry), Jacobi-CG to rtol 1e-8 on the
+    full kernel and its true residual against its floor; at 16³ with
+    c = 0.4, κ = 1.3 in f64 to 1e-12.  Returns the solve's cg_iters and
+    L2 error (printed beside m256's, unchecked)."""
+    from petiga_tpu_torch.assembly.assemble import assemble_separable_planes
+    from petiga_tpu_torch.assembly.convform import assemble_coefficient_planes, poisson_coefficients
+    from petiga_tpu_torch.models import poisson
+    from petiga_tpu_torch.utils import profiling
+
+    row = {"phase": f"separable{nel}"}
+    for n, dtype, c, k, tol in ((nel_f64, torch.float64, 0.4, 1.3, 1e-12),
+                                (nel, torch.float32, 0.0, 1.0, 1e-6)):
+        sp = poisson.make_space(3, p=2, nel=n, dtype=dtype)
+        fpt = poisson.poisson_forcing(c, k)
+        t0 = time.perf_counter()
+        op_s, b_s = profiling.timed(f"separable{n}.assembly", assemble_separable_planes, sp,
+                                    c=c, kappa=k, forcing=lambda x: fpt(x, None),
+                                    flops=profiling.system_flops(sp))
+        t_sep = sync_s(t0)
+        t0 = time.perf_counter()
+        op_c, b_c = assemble_coefficient_planes(sp, poisson_coefficients, {"c": c, "k": k},
+                                                forcing=fpt)
+        t_conv = sync_s(t0)
+        rel = planes_rel_diff(op_s.DT, op_c.DT)
+        rel_b = float((b_s - b_c).abs().max() / b_c.abs().max())
+        del op_c
+        row[f"m{n}"] = {"assembly_separable_s": t_sep, "assembly_conv_s": t_conv,
+                        "planes_rel": rel, "load_rel": rel_b}
+        check(f"separable{n}:vs_conv_planes", rel <= tol and rel_b <= tol, value=rel,
+              load=rel_b, want=f"<= {tol:g} of the largest entry")
+    U, iters, res, t_cg = timed_solve(poisson, op_s, b_s, rtol=1e-8)
+    q = solve_quality(poisson, sp, op_s, b_s, U)
+    lim = RESIDUAL_OVER_FLOOR * q["floor_rel_residual"]
+    l2 = poisson.l2_error(sp, U)
+    row.update({"cg_iters": iters, "cg_residual": res, "cg_s": t_cg, "l2_error": l2, **q})
+    emit(row)
+    check(f"separable{nel}:true_rel_residual", q["true_rel_residual"] <= lim,
+          value=q["true_rel_residual"], want=f"<= {RESIDUAL_OVER_FLOOR:g} x floor {lim:.3e}")
+    return iters, l2
+
+
+def parse_vts(path):
+    """The arrays of a ``write_vts`` file: {name: float32 array}, points
+    under ``"Points"``."""
+    import base64
+    import re
+    import struct
+
+    text = open(path).read()
+    out = {}
+    for m in re.finditer(r'<DataArray type="Float32"(?: Name="([^"]+)")? '
+                         r'NumberOfComponents="(\d+)" format="binary">\s*(\S+)\s*</DataArray>',
+                         text):
+        raw = base64.b64decode(m.group(3))
+        (n,) = struct.unpack("<I", raw[:4])
+        arr = np.frombuffer(raw[4:4 + n], dtype="<f4").reshape(-1, int(m.group(2)))
+        out[m.group(1) or "Points"] = arr
+    return out
+
+
+def linear_probe_check(tag, sp, coords):
+    """Probe and FixedProbe of ``U = a + b·X_a[0]`` (X_a the control
+    points: on the identity map the Greville abscissae) at 4096 seeded
+    points: the value ``a + b·x`` to 1e-6 relative, the gradient ``(b,
+    0, 0)`` to 1e-6 of the sum of magnitudes its contraction adds (the f32
+    grade of a cancelling sum), the two probes equal."""
+    from petiga_tpu_torch.post.probe import FixedProbe, Probe
+
+    a, bcoef = 0.5, 2.0
+    U = torch.as_tensor(a + bcoef * coords[:, :1], dtype=sp.dtype, device=sp.device)
+    pts = np.random.default_rng(6).random((4096, sp.dim))
+    pr = Probe(sp, U)
+    fp = FixedProbe(sp, pts)
+    v, g, x = pr.value(pts), pr.grad(pts), pr.geometry(pts)
+    exact = a + bcoef * x[:, :1].double()
+    v_rel = float((v.double() - exact).abs().max() / exact.abs().max())
+    gref = torch.zeros_like(g, dtype=torch.float64)
+    gref[:, 0, 0] = bcoef
+    S, emap, _ = pr._tabulate(pts)
+    mag = torch.einsum("pqni,pnd->pdi", S[1].abs().double(), U.double().abs()[emap])
+    g_err = float(((g.double() - gref).abs() / mag).max())
+    same = bool(torch.equal(fp.value(U), v) and torch.equal(fp.grad(U), g))
+    emit({"phase": f"io_post_probe_{tag}", "value_rel": v_rel, "grad_err_over_sum": g_err,
+          "fixed_equals_probe": same})
+    check(f"io_post:{tag}:probe_linear", v_rel <= 1e-6 and g_err <= 1e-6 and same,
+          value_rel=v_rel, grad=g_err, fixed_equals_probe=same, want="<= 1e-6")
+
+
+def phase_io_post(sp128, U128, sp_map, U_map, op_map, b_map, sp_nurbs, tmpdir):
+    """``io_post``: PetIGA binary round trips bit for bit (the mapped
+    solution read back gives the same residual through the full kernel,
+    bit for bit), the seeded 8³
+    NURBS files' SHA-256 against the JAX package's, probes on the m128
+    space and on the mapped space, probes against the pointwise
+    tabulation on the mapped solution, ``sample_grid`` and ``write_vts``
+    on the mapped solution parsed back."""
+    import hashlib
+
+    from petiga_tpu_torch.assembly.tabulation import tabulate_elements
+    from petiga_tpu_torch.io.checkpoint import read_space, read_vec, write_space, write_vec
+    from petiga_tpu_torch.models import poisson
+    from petiga_tpu_torch.post.probe import Probe
+    from petiga_tpu_torch.post.sample import sample_grid, write_vts
+
+    row = {"phase": "io_post"}
+    for tag, sp, U in (("m128", sp128, U128), ("mapped128", sp_map, U_map)):
+        path = f"{tmpdir}/{tag}_vec.dat"
+        write_vec(sp, U, path)
+        back = read_vec(sp, path)
+        same = bool(torch.equal(back, U.reshape(sp.nnodes, 1)))
+        row[f"{tag}_vec_roundtrip"] = same
+        check(f"io_post:{tag}:vec_roundtrip", same)
+    r0 = b_map - op_map.matvec(U_map)
+    r1 = b_map - op_map.matvec(back)
+    row["mapped128_readback_rel_residual"] = float(torch.linalg.vector_norm(r1)
+                                                   / torch.linalg.vector_norm(b_map))
+    check("io_post:mapped128:readback_residual", bool(torch.equal(r0, r1)),
+          value=row["mapped128_readback_rel_residual"])
+    for tag, sp in (("mapped128", sp_map), ("nurbs128", sp_nurbs)):
+        path = f"{tmpdir}/{tag}_space.dat"
+        write_space(sp, path)
+        back = read_space(path, dtype=sp.dtype)
+        geo = bool(np.array_equal(back.geometry, sp.geometry))
+        geo_rel = float(np.abs(back.geometry - sp.geometry).max())
+        w = (back.rational is None and sp.rational is None) or bool(
+            np.array_equal(back.rational, sp.rational))
+        row[f"{tag}_space_roundtrip"] = {"geometry_bitwise": geo, "geometry_max_abs": geo_rel,
+                                         "weights_bitwise": w}
+        # X·W / W may round by an ulp when weights are stored: bitwise for
+        # the mapped space, to 2 ulp of 1 for the NURBS one
+        check(f"io_post:{tag}:space_roundtrip", w and (geo if sp.rational is None
+                                                        else geo_rel <= 4.5e-16),
+              geometry_bitwise=geo, geometry_max_abs=geo_rel, weights_bitwise=w)
+    sp8 = poisson.make_space(3, p=2, nel=8, dtype=torch.float64)
+    G = sp8.greville_coordinates()
+    sp8.init_geometry(warp(G), nurbs_weights(G))
+    U8 = torch.as_tensor(np.random.default_rng(8).normal(size=(sp8.nnodes, 1)),
+                         device=sp8.device)
+    write_space(sp8, f"{tmpdir}/space8.dat")
+    write_vec(sp8, U8, f"{tmpdir}/vec8.dat")
+    for name in ("space", "vec"):
+        with open(f"{tmpdir}/{name}8.dat", "rb") as f:
+            h = hashlib.sha256(f.read()).hexdigest()
+        row[f"{name}_sha256"] = h
+        check(f"io_post:{name}_sha256", h == GEOMETRY_REF[f"{name}_sha256"], value=h,
+              ref=GEOMETRY_REF[f"{name}_sha256"])
+    linear_probe_check("m128", sp128, sp128.greville_coordinates())
+    linear_probe_check("mapped128", sp_map, sp_map.geometry)
+    # the mapped solution at quadrature points: probe against tabulation
+    ids = torch.as_tensor(np.random.default_rng(9).choice(sp_map.nel, 64, replace=False),
+                          device=sp_map.device)
+    pb = tabulate_elements(sp_map, ids, order=1)
+    Um = U_map.reshape(sp_map.nnodes, 1)
+    v_tab = torch.einsum("bqn,bn->bq", pb.shape[0], Um[sp_map.device_emap(ids), 0])
+    v_pr = Probe(sp_map, Um).value(pb.u.reshape(-1, 3).double().cpu().numpy())
+    t_rel = float((v_pr[:, 0] - v_tab.reshape(-1)).abs().max() / Um.abs().max())
+    row["probe_vs_tabulation_rel"] = t_rel
+    check("io_post:mapped128:probe_vs_tabulation", t_rel <= 1e-6, value=t_rel,
+          want="<= 1e-6 of max |U|")
+    t0 = time.perf_counter()
+    coords, vals, shape = sample_grid(sp_map, Um, resolution=1)
+    path = f"{tmpdir}/mapped128.vts"
+    write_vts(path, coords, shape, {"u": vals[:, 0]})
+    back = parse_vts(path)
+    xyz = np.asarray(coords, dtype=np.float32)
+    ok = (back["Points"].shape == (int(np.prod(shape)), 3)
+          and np.array_equal(back["Points"], xyz)
+          and np.array_equal(back["u"][:, 0], np.asarray(vals[:, 0], dtype=np.float32)))
+    row.update({"vts_points": int(np.prod(shape)), "vts_s": time.perf_counter() - t0})
+    check("io_post:vts_parsed_back", ok, points=int(np.prod(shape)))
+    emit(row)
+
+
+def phase_log_view(op):
+    """The log events of this slice's phases: count, CUDA-event seconds,
+    modeled flops and GF/s, after 20 products of ``op`` (the mapped128
+    operator) through the full kernel, each a timed ``MatMult`` event with
+    PetIGA's flop model; the table printed, then as one JSON line."""
+    import io
+
+    from petiga_tpu_torch.utils import profiling
+
+    xb = op.pack_vec(torch.ones(op.st.nnodes, 1, dtype=op.DT.dtype, device=op.device))
+    for _ in range(20):
+        with profiling.event("MatMult", flops=profiling.spmv_flops(op.st)):
+            op.matvec_xb(op.DT, xb)
+    buf = io.StringIO()
+    profiling.log_view(buf)
+    lines = buf.getvalue().splitlines()
+    print("\n".join(lines), flush=True)
+    emit({"phase": "log_view", "events": [
+        {"event": name, "count": rec["count"], "seconds": rec["time"],
+         "flops": rec["flops"],
+         "gflops_s": rec["flops"] / rec["time"] / 1e9 if rec["time"] > 0 else None}
+        for name, rec in sorted(profiling.EVENTS.items())]})
+    check("log_view:events", len(lines) > 1, events=len(lines) - 1)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
@@ -2094,6 +2634,41 @@ def main():
     t0 = time.perf_counter()
     phase_transient()
     PHASE_SECONDS["transient"] = time.perf_counter() - t0
+
+    # ---- the single-device user surface: -iga_load, mapped and NURBS conv
+    # assembly, collocation, separable planes, I/O and probes, log events
+    from petiga_tpu_torch.utils import profiling
+
+    profiling.reset()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        t0 = time.perf_counter()
+        with counted("mapped128"):
+            sp_map, U_map, op_map, b_map = phase_mapped(128, False, tmpdir)
+            phase_mapped_f64(tmpdir)
+        PHASE_SECONDS["mapped128"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with counted("nurbs128"):
+            sp_nurbs = phase_mapped(128, True, tmpdir)[0]
+        PHASE_SECONDS["nurbs128"] = time.perf_counter() - t0
+        for name, fn in (("colloc", phase_colloc), ("bratu_colloc", phase_bratu_colloc)):
+            t0 = time.perf_counter()
+            with counted(name):
+                fn()
+            PHASE_SECONDS[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with counted("separable256"):
+            sep_iters, sep_l2 = phase_separable(256)
+        emit({"phase": "separable256_vs_m256", "cg_iters": sep_iters, "l2_error": sep_l2,
+              "m256_cg_iters": iters256, "m256_l2_error": l2_256,
+              "note": "unchecked: both move with how the f32 planes round"})
+        PHASE_SECONDS["separable256"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with counted("io_post"):
+            phase_io_post(sp, x, sp_map, U_map, op_map, b_map, sp_nurbs, tmpdir)
+        PHASE_SECONDS["io_post"] = time.perf_counter() - t0
+        with counted("log_view"):
+            phase_log_view(op_map)
+        del op_map, b_map, U_map
     emit({"phase": "seconds", **PHASE_SECONDS, "total": time.perf_counter() - t_start})
 
     emit({"phase": "launches", **PHASE_LAUNCHES})
@@ -2101,9 +2676,10 @@ def main():
     for kind, phases in (("full", ("m128", "m256", "m128_refine", "pointwise", "entry", "ch64",
                                    "ch128", "nonlinear_f64", "elast96", "elast_f64",
                                    "precond", "hyper", "ns", "ch_adapt512",
-                                   "ch_adapt256")
+                                   "ch_adapt256", "mapped128", "nurbs128", "colloc",
+                                   "bratu_colloc", "separable256", "io_post", "log_view")
                           + tuple(name for name, _ in TRANSIENT)),
-                         ("sym", ("m256", "m256_refine", "elast96"))):
+                         ("sym", ("m256", "m256_refine", "elast96", "mapped128"))):
         for ph in phases:
             check(f"launches:{kind}:{ph}", PHASE_LAUNCHES[ph][kind] > 0,
                   value=PHASE_LAUNCHES[ph][kind])

@@ -22,8 +22,13 @@ Nonlinear residuals (``assemble_function``) keep the reference's
 fix-value semantics; their Jacobians (``assemble_jacobian``) are
 forward-mode AD of the element residual (``torch.func.jvp``, batched over
 the element's local unknowns with ``torch.func.vmap``), or a hand-written
-``jacobian=`` form.  Not ported yet: ``assemble_separable_planes``
-(ROADMAP Queue 1 item 12), which raises ``NotImplementedError``.
+``jacobian=`` form.  :func:`assemble_separable_planes` is the
+sum-factorized assembly of the separable reaction–diffusion system.
+
+The routines register PetIGA's log events (``IGA_FormSystem``,
+``IGA_FormVector``, ``IGA_FormFunction``, ``IGA_FormJacobian``,
+``IGA_FormScalar``) with :mod:`petiga_tpu_torch.utils.profiling` where the
+reference's do.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from torch.utils._pytree import tree_map
 
 from ..sparse.spmv import StencilOperator
 from ..sparse.stencil import Stencil, StencilMatrix, _slot_window, halo_pad
+from ..utils import profiling
 from . import fastpath
 from .point import Point
 from .tabulation import PointBlock, tabulate_elements
@@ -373,6 +379,7 @@ def assemble_system_planes(
         raise ValueError("plane-direct assembly requires open axes")
     if not fastpath.is_unit_step(space):
         raise ValueError("plane-direct assembly requires a regular unit-step space")
+    profiling.count("IGA_FormSystem", profiling.system_flops(space))
     dt, dof = space.dtype, space.dof
     if chunk is None:
         chunk = min(space.nel, 8192)
@@ -394,10 +401,91 @@ def assemble_system_planes(
     return op, _add_flux(space, b)
 
 
-def assemble_separable_planes(space, **kw):
-    raise NotImplementedError(
-        "assemble_separable_planes is not ported yet (ROADMAP Queue 1 item 12)"
-    )
+def assemble_separable_planes(
+    space,
+    *,
+    c: float = 0.0,
+    kappa: float = 1.0,
+    forcing: Optional[Callable] = None,
+    chunk: Optional[int] = None,
+    apply_fix: bool = True,
+):
+    """Sum-factorized assembly of the separable reaction–diffusion system
+    ``a(u,v) = ∫ c u v + κ ∇u·∇v`` (identity map, constant coefficients):
+    the element matrix is the Kronecker combination
+
+        Ke = c M_z⊗M_y⊗M_x + κ (S_z⊗M_y⊗M_x + M_z⊗S_y⊗M_x + M_z⊗M_y⊗S_x)
+
+    of per-axis 1-D element mass and stiffness matrices ((p+1)² each,
+    computed once per axis), accumulated by shifted slice adds straight
+    into the kernel's slot-major planes.  The same operator as
+    :func:`assemble_system_planes` with the generic Poisson form.
+
+    ``forcing(x) -> scalar`` at one point builds the load vector through
+    the order-0 tabulation; Dirichlet elimination is the post-assembly
+    fix.  Open regular unit-step spaces, dof = 1.  Returns ``(op, b)``
+    with ``op`` a full-storage :class:`StencilOperator`."""
+    st = stencil_of(space)
+    if any(space.periodic):
+        raise ValueError("separable assembly requires open axes")
+    if not fastpath.is_unit_step(space) or space.dof != 1:
+        raise ValueError("separable assembly requires a regular unit-step dof=1 space")
+    if space.has_geometry:
+        raise ValueError("separable assembly requires the identity map")
+    profiling.count("IGA_FormSystem", profiling.system_flops(space))
+    dt, dim, dev = space.dtype, space.dim, space.device
+    eshape = space.elem_shape
+    if chunk is None:
+        chunk = min(space.nel, 8192)
+    chunk_sz = fastpath.slab_chunk(space, chunk)
+    kz = chunk_sz // (space.nel // eshape[-1])
+
+    # per-axis 1-D element matrices (nel_d, p_d+1, p_d+1)
+    Ms, Ss = [], []
+    for t in space.tabs:
+        w = torch.as_tensor(t.weight * t.detJac[:, None], dtype=dt, device=dev)
+        B0 = torch.as_tensor(t.value[:, :, 0, :], dtype=dt, device=dev)
+        B1 = torch.as_tensor(t.value[:, :, 1, :], dtype=dt, device=dev)
+        Ms.append(torch.einsum("eq,eqa,eqb->eab", w, B0, B0))
+        Ss.append(torch.einsum("eq,eqa,eqb->eab", w, B1, B1))
+
+    def kron(parts):
+        # slowest axis major, so the flat local index is axis-0 fastest
+        out = parts[dim - 1]
+        for d in range(dim - 2, -1, -1):
+            t = parts[d]
+            B, na, nb = out.shape
+            out = (out[:, :, None, :, None] * t[:, None, :, None, :]).reshape(
+                B, na * t.shape[1], nb * t.shape[2])
+        return out
+
+    def chunk_Ke(ids):
+        rem, fac = ids, []
+        for d in range(dim):
+            ed = rem % eshape[d]
+            rem = rem // eshape[d]
+            fac.append((Ms[d][ed], Ss[d][ed]))
+        Ke = c * kron([f[0] for f in fac]) if c != 0.0 else None
+        for dd in range(dim):
+            term = kappa * kron([fac[d][1] if d == dd else fac[d][0] for d in range(dim)])
+            Ke = term if Ke is None else Ke + term
+        return Ke
+
+    P = torch.zeros((st.K, st.nnodes), dtype=dt, device=dev)
+    b_grid = torch.zeros(tuple(space.node_shape[::-1]) + (1,), dtype=dt, device=dev)
+    for ci, ids in enumerate(_chunks(space, chunk_sz)):
+        fastpath.accumulate_matrix_dyn_planes(space, P, chunk_Ke(ids)[..., None, None],
+                                              ci * kz)
+        if forcing is not None:
+            pb = tabulate_elements(space, ids, order=0)
+            f = torch.func.vmap(torch.func.vmap(forcing))(pb.x)
+            Fe = torch.einsum("bq,bqa->ba", pb.weight * f, pb.shape[0])[..., None]
+            fastpath.accumulate_vector_dyn(space, b_grid, Fe, ci * kz)
+    op = StencilOperator.from_planes(st, P)
+    b = b_grid.reshape(st.nnodes, 1)
+    if apply_fix:
+        op, b = dirichlet_post_fix(space, op, b)
+    return op, _add_flux(space, b)
 
 
 def assemble_system(
@@ -443,6 +531,7 @@ def assemble_system(
     if fix not in ("element", "post"):
         raise ValueError(f"unknown fix mode {fix!r}")
     post_fix = apply_fix and fix == "post"
+    profiling.count("IGA_FormSystem", profiling.system_flops(space))
     element_KF = _make_element_KF(space, ctx, order, apply_fix and not post_fix)
 
     if fast:
@@ -482,6 +571,7 @@ def assemble_system(
 
 def assemble_vector(space, vecform, ctx=None, *, order=None, chunk=None):
     """Assemble a load vector from F-only form (IGAComputeVector)."""
+    profiling.count("IGA_FormVector", profiling.residual_flops(space))
     dt = space.dtype
     nen, dof = space.nen, space.dof
     b = torch.zeros((space.nnodes, dof), dtype=dt, device=space.device)
@@ -634,6 +724,7 @@ def assemble_function(space, function, U, ctx=None, *, aux=None, order=None,
     the reference's IFunction/I2Function/IEFunction multi-state forms.
     Dirichlet rows hold ``u - v``; nodal fluxes are subtracted on free
     rows.  Returns (nnodes, dof)."""
+    profiling.count("IGA_FormFunction", profiling.residual_flops(space))
     F = _assemble_residual(space, function, U, ctx, aux, order, chunk, boundary)
     flux = boundary_flux_vector(space)
     if flux is not None:
@@ -688,6 +779,7 @@ def assemble_jacobian(space, function, U, ctx=None, *, jacobian=None, aux=None,
     element residual; ``jacobian(pt, Ue, ctx) -> K`` replaces the AD when
     given.  Returns a node-major :class:`StencilMatrix`, whose
     ``fast_operator()`` is the CUDA kernel operator."""
+    profiling.count("IGA_FormJacobian", profiling.jacobian_flops(space))
     st = stencil_of(space)
     dof = space.dof
     U = U.reshape(space.nnodes, dof)
@@ -709,6 +801,7 @@ def assemble_jacobian(space, function, U, ctx=None, *, jacobian=None, aux=None,
 def compute_scalar(space, functional, U=None, ctx=None, *, order=None, chunk=None):
     """Quadrature sum of a scalar functional (IGAComputeScalar).
     ``functional(pt, Ue, ctx) -> (nsc,)``; returns (nsc,)."""
+    profiling.count("IGA_FormScalar", profiling.residual_flops(space))
     Uv = None if U is None else U.reshape(space.nnodes, space.dof)
 
     def one(pt, ue):

@@ -31,11 +31,24 @@ The load vector ``b_a = ∫ f N_a`` is sum-factorized on the fine
 quadrature grid, ``b = Bᵀ(w·f)``, open or periodic.
 
 The port caches only static tables per space (conv kernels, fine basis
-matrices, box lists), never anything that depends on ``ctx`` or on the
-field values.  dof > 1 operators take ``(dof, dof)`` channel blocks: each
-block entry ``(r, c)`` is its own set of planes, written or convolved
-from the channels whose block reaches it.  Mapped geometry and rational
-weights raise ``NotImplementedError`` naming their ROADMAP item.
+matrices, geometry grids, box lists), never anything that depends on
+``ctx`` or on the field values.  dof > 1 operators take ``(dof, dof)``
+channel blocks: each block entry ``(r, c)`` is its own set of planes,
+written or convolved from the channels whose block reaches it.
+
+Mapped geometry and rational (NURBS) weights (``nsd == dim``, order-1
+channels) keep the conv kernels parametric: the geometry and the weight
+field are evaluated sum-factorized on the fine grid, and the spatial
+channels are pulled back per point, ``C̃_kl = detX Σ_ij S_ik C_ij S_jl``,
+with ``S`` the structurally sparse map from the plain basis' parametric
+derivatives to the stored basis' spatial ones (inverse-map pullback and
+rationalization, :func:`_S_components`).  The conv result of the plain
+basis is conjugated by the node weights (``A = D_w Ã D_w``); the generic
+boxes tabulate the mapped rational basis directly.  Under a map the load
+vector of :func:`assemble_coefficient_planes` carries ``detX / W`` and
+the node weights the same way (:func:`_load_vector`); the standalone
+:func:`assemble_load_vector` and :func:`assemble_residual_conv` stay on
+the identity map, as the reference's do.
 """
 
 from __future__ import annotations
@@ -49,8 +62,9 @@ import torch
 
 from . import fastpath
 from .assemble import _add_flux, _make_element_KF, dirichlet_post_fix, stencil_of
-from .tabulation import tabulate_elements
+from .tabulation import det_small, inv_small, tabulate_elements
 from ..sparse.spmv import StencilOperator, ext_shape
+from ..utils import profiling
 
 __all__ = [
     "coefficient_pointwise_form",
@@ -510,6 +524,170 @@ def _fine_field(space, mats, ders, G, blo, bext):
     return out
 
 
+def _geometry_grids(space):
+    """``(Gg, wg)``: the control points on the node grid ``(N_rev..., nsd)``
+    — projective (times the weights) on rational spaces — or None on the
+    identity map, and the weights ``(N_rev...)`` or None."""
+    def build():
+        N_rev = tuple(space.node_shape[::-1])
+        W = space.rational
+        Gg = wg = None
+        if W is not None:
+            wg = torch.as_tensor(W.reshape(N_rev), dtype=space.dtype, device=space.device)
+        if space.has_geometry:
+            X = space.geometry if W is None else space.geometry * W[:, None]
+            Gg = torch.as_tensor(X.reshape(N_rev + (space.nsd,)), dtype=space.dtype,
+                                 device=space.device)
+        return Gg, wg
+
+    return _cached(space, "geometry_grids", build)
+
+
+def _unit(dim, *axes):
+    """Per-axis derivative orders of the derivative along ``axes``."""
+    return tuple(sum(1 for a in axes if a == d) for d in range(dim))
+
+
+def _fine_geometry(space, blo, bext):
+    """Geometry of a box on its fine grid: ``(X, J, W0, dW)`` with the
+    physical points ``X (f_rev..., dim)``, the Jacobian ``J[..., i, d] =
+    dx_i/du_d`` (None on the identity map) and, on rational spaces, the
+    weight field ``W0 (f_rev...)`` and its parametric gradient ``dW
+    (f_rev..., dim)`` (else None).  A mapped rational map is the quotient
+    ``A/W`` of the projective map ``A``: ``dX = (dA·W - A·dW)/W²``."""
+    dim = space.dim
+    mats = _fine_basis_mats(space, space.dtype)
+    Gg, wg = _geometry_grids(space)
+
+    def field(G, *axes):
+        return _fine_field(space, mats, _unit(dim, *axes), G, blo, bext)
+
+    W0 = dW = None
+    if wg is not None:
+        W0 = field(wg)
+        dW = torch.stack([field(wg, d) for d in range(dim)], dim=-1)
+    if Gg is None:
+        return _fine_X(space, blo, bext), None, W0, dW
+    A0 = field(Gg)
+    Ad = [field(Gg, d) for d in range(dim)]
+    if wg is None:
+        return A0, torch.stack(Ad, dim=-1), None, None
+    X = A0 / W0[..., None]
+    J = torch.stack([(Ad[d] * W0[..., None] - A0 * dW[..., d, None]) / (W0**2)[..., None]
+                     for d in range(dim)], dim=-1)
+    return X, J, W0, dW
+
+
+def _S_components(space, E1, W0, dW):
+    """Structurally sparse ``S[i][k]``: spatial derivative ``D_i`` of the
+    stored basis from the parametric derivative ``D̂_k`` of the plain
+    B-splines (index 0 = value; None = zero), per point.  The inverse-map
+    pullback ``E1[..., k, i] = du_k/dx_i`` (None on the identity map) and
+    the rationalization ``N/W`` composed."""
+    dim = space.dim
+    S = [[None] * (dim + 1) for _ in range(dim + 1)]
+    if W0 is None:
+        S[0][0] = 1.0
+        for i in range(1, dim + 1):
+            if E1 is None:
+                S[i][i] = 1.0
+            else:
+                for k in range(1, dim + 1):
+                    S[i][k] = E1[..., k - 1, i - 1]
+        return S
+    S[0][0] = 1.0 / W0
+    for i in range(1, dim + 1):
+        if E1 is None:
+            S[i][0] = -dW[..., i - 1] / W0**2
+            S[i][i] = 1.0 / W0
+        else:
+            S[i][0] = -torch.einsum("...d,...d->...", E1[..., i - 1], dW) / W0**2
+            for k in range(1, dim + 1):
+                S[i][k] = E1[..., k - 1, i - 1] / W0
+    return S
+
+
+def _fine_pullback(space, blo, bext):
+    """``(X, detX, S)`` of a box's fine grid: physical points, the map's
+    determinant (None on the identity map) and :func:`_S_components`."""
+    X, J, W0, dW = _fine_geometry(space, blo, bext)
+    detX = E1 = None
+    if J is not None:
+        detX = det_small(J)
+        E1 = inv_small(J, detX)
+    return X, detX, _S_components(space, E1, W0, dW)
+
+
+def _param_pairs(space, users):
+    """The parametric channel pairs ``(k, l)`` that the user channels
+    ``users`` reach through ``S`` (rows ``k`` of ``S`` that can be nonzero
+    for the user's spatial index)."""
+    dim = space.dim
+
+    def rows(k):
+        if k == 0:
+            return set(range(dim + 1)) if space.is_rational else {0}
+        return set(range(1, dim + 1))
+
+    ui = {i for i, _ in users}
+    uj = {j for _, j in users}
+    return tuple((k, l) for k in range(dim + 1) for l in range(dim + 1)
+                 if rows(k) & ui and rows(l) & uj)
+
+
+def _pulled_channel(space, S, detX, users, vals, k, l, rc, f_rev):
+    """Parametric channel ``C̃_kl = detX Σ_ij S_ik C_ij S_jl`` of plane
+    entry ``rc`` on a fine grid ``f_rev``; ``vals`` are the user channel
+    values at the grid's physical points."""
+    dt, dev = space.dtype, space.device
+    acc = None
+    for (i, j) in users:
+        if S[i][k] is None or S[j][l] is None:
+            continue
+        term = S[i][k] * _as(_block_entry(space, vals[(i, j)], rc), dt, dev) * S[j][l]
+        acc = term if acc is None else acc + term
+    if acc is None:
+        return torch.zeros(f_rev, dtype=dt, device=dev)
+    if detX is not None:
+        acc = detX * acc
+    return torch.broadcast_to(_as(acc, dt, dev), f_rev)
+
+
+def _weight_window(space, wg, node_sl, off_rev):
+    """``w[n + off]`` for the nodes ``n`` of a window (grid order): zero
+    outside an open axis, wrapped on a periodic one."""
+    dim = space.dim
+    idx, keep = [], None
+    for g, s in enumerate(node_sl):
+        N = space.node_shape[dim - 1 - g]
+        i = torch.arange(s.start, s.stop, device=wg.device) + off_rev[g]
+        shape = [1] * dim
+        shape[g] = -1
+        if space.periodic[dim - 1 - g]:
+            i = i % N
+        else:
+            ok = ((i >= 0) & (i < N)).view(shape)
+            keep = ok if keep is None else keep & ok
+            i = i.clamp(0, N - 1)
+        idx.append(i.view(shape))
+    w = wg[tuple(idx)]
+    return w if keep is None else w * keep
+
+
+def _conjugate_weights(space, out, slots, node_sl):
+    """Rational conv result: ``out[s][n] *= w[n]·w[n + off(s)]`` for the
+    stored slots ``slots`` over the window ``node_sl``, in place (the
+    plain-basis operator conjugated by the node weights)."""
+    dim = space.dim
+    wg = _geometry_grids(space)[1]
+    offs = stencil_of(space).slot_offsets()
+    wn = _weight_window(space, wg, node_sl, (0,) * dim)
+    for si, s in enumerate(slots):
+        off_rev = tuple(int(offs[s, dim - 1 - g]) for g in range(dim))
+        out[si] *= wn * _weight_window(space, wg, node_sl, off_rev)
+    return out
+
+
 def _field_specs(fields):
     """``fields`` -> sorted ((name, vector, order), ...), or None for no
     fields; a bare vector means order 0."""
@@ -561,15 +739,12 @@ def _fine_fields(space, specs, blo, bext):
                 memo[ders] = _fine_field(space, mats, ders, G, blo, bext)
             return memo[ders]
 
-        def unit(*axes):
-            return tuple(sum(1 for a in axes if a == dd) for dd in range(dim))
-
-        fe[k] = der(unit())
+        fe[k] = der(_unit(dim))
         if o >= 1:
-            fe[k + "_grad"] = torch.stack([der(unit(d)) for d in range(dim)], dim=-1)
+            fe[k + "_grad"] = torch.stack([der(_unit(dim, d)) for d in range(dim)], dim=-1)
         if o >= 2:
             fe[k + "_hess"] = torch.stack(
-                [torch.stack([der(unit(d1, d2)) for d2 in range(dim)], dim=-1)
+                [torch.stack([der(_unit(dim, d1, d2)) for d2 in range(dim)], dim=-1)
                  for d1 in range(dim)], dim=-2)
     return fe
 
@@ -689,14 +864,20 @@ def _window(space, blo, bext):
 # ----------------------------------------------------------- entry points
 
 
+def _geometry_values(dim):
+    """Fine-grid values per point that the pullback holds beside the
+    channels: the geometry fields, J, its inverse and the S components."""
+    return 4 * (dim + 1) ** 2
+
+
 def _check_space(space, symmetric):
     if not fastpath.is_unit_step(space):
         raise ValueError("conv assembly requires a regular unit-step space")
     if symmetric and any(space.periodic):
         raise ValueError("symmetric conv assembly requires open axes")
-    if space.has_geometry or space.is_rational:
-        raise NotImplementedError(
-            "conv assembly on mapped or rational geometry (ROADMAP Queue 1 item 8.6)")
+    if (space.has_geometry or space.is_rational) and space.nsd != space.dim:
+        raise ValueError("conv assembly requires dim == nsd geometry (manifolds take "
+                         "the pointwise path)")
 
 
 def assemble_load_vector(space, forcing: Callable, ctx=None):
@@ -707,20 +888,43 @@ def assemble_load_vector(space, forcing: Callable, ctx=None):
     returns ``(...)`` (dof = 1) or ``(..., dof)``, one load per field.
     Returns (nnodes, dof)."""
     _check_space(space, False)
+    if space.has_geometry or space.is_rational:
+        raise ValueError("conv load assembly: identity map")
+    return _load_vector(space, forcing, ctx)
+
+
+def _load_vector(space, forcing, ctx):
+    """:func:`assemble_load_vector`, on mapped and rational spaces too:
+    there the fine grid's points are the mapped ones, the weights carry
+    ``detX / W`` and the result the node weights (``N_a = w_a B_a / W``);
+    the chunks are then whole elements of the slowest axis."""
     dim, dof = space.dim, space.dof
+    geom = space.has_geometry or space.is_rational
     B = [m[0] for m in _fine_basis_mats(space, space.dtype)]  # (F_d, N_d)
     F_rev = [B[dim - 1 - g].shape[0] for g in range(dim)]
-    per_row = math.prod(F_rev[1:]) * (dim + 2 + dof)
+    per_row = math.prod(F_rev[1:]) * (dim + 2 + dof + (_geometry_values(dim) if geom else 0))
     itemsize = torch.empty((), dtype=space.dtype).element_size()
     cz = max(1, min(F_rev[0], _FINE_CHUNK_BYTES // (per_row * itemsize)))
+    nqz = space.tabs[dim - 1].nqp
+    if geom:
+        cz = max(nqz, cz // nqz * nqz)
     bg = torch.zeros(tuple(space.node_shape[::-1]) + (dof,), dtype=space.dtype,
                      device=space.device)
     for z0 in range(0, F_rev[0], cz):
         z1 = min(z0 + cz, F_rev[0])
-        X = _fine_points(space, z0, z1)
+        w = _fine_weights(space, z0, z1)
+        if geom:
+            blo = (0,) * (dim - 1) + (z0 // nqz,)
+            bext = tuple(space.elem_shape[:-1]) + ((z1 - z0) // nqz,)
+            X, J, W0, _ = _fine_geometry(space, blo, bext)
+            if J is not None:
+                w = w * det_small(J)
+            if W0 is not None:
+                w = w / W0
+        else:
+            X = _fine_points(space, z0, z1)
         f = torch.as_tensor(forcing(X, ctx), dtype=space.dtype, device=space.device)
         f = torch.broadcast_to(f[..., None] if dof == 1 else f, X.shape[:-1] + (dof,))
-        w = _fine_weights(space, z0, z1)
         for r in range(dof):
             g_ = f[..., r] * w
             for g in range(dim - 1, -1, -1):  # fast axes first: fine -> nodes
@@ -729,6 +933,8 @@ def assemble_load_vector(space, forcing: Callable, ctx=None):
                     Bd = Bd[z0:z1]
                 g_ = torch.movedim(torch.tensordot(Bd, g_, dims=([0], [g])), 0, g)
             bg[..., r] += g_
+    if space.is_rational:
+        bg *= _geometry_grids(space)[1][..., None]
     return bg.reshape(space.nnodes, dof)
 
 
@@ -850,39 +1056,56 @@ def _gen_box_matrix(space, coef, ctx, specs, max_order, ids):
 
 def _conv_planes(space, coef, ctx, specs, chlist, chv, is_const, max_order, slots,
                  conv_min):
-    """(len(slots)·dof², next) planes of a variable-coefficient spec: one
-    convolution per conv-box chunk and block entry ``(r, c)`` (over the
-    channels that reach it), generic boxes by shift accumulation, both
-    folded into the interior of the extended layout."""
+    """(len(slots)·dof², next) planes of a variable-coefficient spec, or
+    of any spec on a mapped or rational space: one convolution per
+    conv-box chunk and block entry ``(r, c)`` (over the channels that
+    reach it: the user's, or under a map the parametric pairs that they
+    reach), generic boxes by shift accumulation, both folded into the
+    interior of the extended layout."""
     st = stencil_of(space)
     dim, dt, dev, dd = space.dim, space.dtype, space.device, space.dof ** 2
+    geom = space.has_geometry or space.is_rational
     Ne = ext_shape(st)
     Ne_rev = tuple(Ne[::-1])
     los = tuple((ne - n) // 2 for n, ne in zip(space.node_shape, Ne))[::-1]
     Keff = len(slots)
     P = torch.zeros((Keff * dd, math.prod(Ne)), dtype=dt, device=dev)
     Pg = P.view((Keff, dd) + Ne_rev)
-    chmap = _channels_rc(space, chlist, chv, is_const)
+    users = _channels_rc(space, chlist, chv, is_const)
+    chmap = [_param_pairs(space, u) for u in users] if geom else users
     conv_boxes, gen_boxes = _boxes(space, conv_min)
-    per_point = ((1 + dd) * len(chlist) + _field_count(specs, dim) + dim) * P.element_size()
+    nch = max(len(c) for c in chmap)
+    per_point = ((1 + dd) * nch + _field_count(specs, dim) + dim
+                 + (_geometry_values(dim) if geom else 0)) * P.element_size()
     for blo, bext, reps in _conv_tasks(space, conv_boxes, per_point):
-        X = _fine_X(space, blo, bext)
+        if geom:
+            X, detX, S = _fine_pullback(space, blo, bext)
+        else:
+            X = _fine_X(space, blo, bext)
         ch = (coef(X, ctx, _fine_fields(space, specs, blo, bext)) if specs is not None
               else coef(X, ctx))
         f_rev = X.shape[:-1]
         for rc, chl in enumerate(chmap):
             if not chl:
                 continue
-            Fc = torch.stack([
-                torch.broadcast_to(
-                    _as(_block_entry(space, chv[c] if is_const[c] else ch[c], rc), dt, dev),
-                    f_rev)
-                for c in chl])
+            if geom:
+                Fc = torch.stack([_pulled_channel(space, S, detX, users[rc], ch, k, l, rc,
+                                                  f_rev) for k, l in chl])
+            else:
+                Fc = torch.stack([
+                    torch.broadcast_to(
+                        _as(_block_entry(space, chv[c] if is_const[c] else ch[c], rc), dt,
+                            dev), f_rev)
+                    for c in chl])
             out = _conv(_space_to_depth(space, Fc, bext),
                         _conv_kernel(space, chl, dt, reps, slots), space.degrees)
             del Fc
+            if space.is_rational:
+                _conjugate_weights(space, out, slots, _window(space, blo, bext))
             _add_folded(space, Pg[:, rc], out, _window(space, blo, bext), los)
         del ch, X
+        if geom:
+            del detX, S
     # plane k·dof² + rc of the stored slots, out of the box's K·dof² planes
     sel = [s * dd + rc for s in slots for rc in range(dd)]
     for blo, bext in gen_boxes:
@@ -929,10 +1152,16 @@ def assemble_coefficient_planes(
     Spatially constant specs without fields take the exact outer-product
     write unless ``const_outer`` is False; everything else convolves over
     the type-combo boxes of at least ``conv_min`` elements and assembles
-    the rest generically."""
+    the rest generically.
+
+    Mapped and rational spaces (``nsd == dim``; order-1 channels) always
+    convolve, with the channels pulled back per point (module docstring);
+    their load vector carries the map's measure and the weights."""
     _check_space(space, symmetric)
-    if fields is not None and space.dof != 1:
+    geom = space.has_geometry or space.is_rational
+    if fields is not None and (space.dof != 1 or geom):
         raise ValueError("field coefficients: dof=1 identity map only")
+    profiling.count("IGA_FormSystem", profiling.system_flops(space))
     st = stencil_of(space)
     dim, dt, dof = space.dim, space.dtype, space.dof
     specs = _field_specs(fields)
@@ -944,12 +1173,15 @@ def assemble_coefficient_planes(
         if not (_check_idx(i, dim) and _check_idx(j, dim)):
             raise ValueError(f"channel {(i, j)} out of range")
     max_order = max([1] + [max(_chan_total(i), _chan_total(j)) for i, j in chlist])
+    if max_order > 1 and geom:
+        raise ValueError("second-derivative channels require the identity map "
+                         "(no second-order pullback in the conv engine)")
     if dof > 1 and any(_value_shape(probe[c])[-2:] != (dof, dof) for c in chlist):
         raise ValueError(f"channel values of a dof={dof} space are ({dof}, {dof}) blocks")
     const_shapes = ((), (dof, dof)) if dof > 1 else ((),)
     is_const = {c: _value_shape(probe[c]) in const_shapes for c in chlist}
     slots = tuple(range(st.diag_slot, st.K)) if symmetric else tuple(range(st.K))
-    if const_outer and specs is None and all(is_const.values()):
+    if const_outer and specs is None and all(is_const.values()) and not geom:
         P = _outer_planes(space, chlist, probe, slots)
     else:
         P = _conv_planes(space, coef, ctx, specs, chlist, probe, is_const, max_order, slots,
@@ -959,7 +1191,7 @@ def assemble_coefficient_planes(
     else:
         op = StencilOperator.from_planes(st, P)
     if forcing is not None:
-        b = assemble_load_vector(space, forcing, ctx)
+        b = _load_vector(space, forcing, ctx)
     else:
         b = torch.zeros((st.nnodes, dof), dtype=dt, device=space.device)
     if apply_fix:

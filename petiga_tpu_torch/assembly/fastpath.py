@@ -46,7 +46,10 @@ def is_unit_step(space) -> bool:
 
 
 def is_regular(space) -> bool:
-    """Offsets in arithmetic progression on every axis."""
+    """Offsets in arithmetic progression on every axis (and not
+    collocation)."""
+    if space.collocation:
+        return False
     for d, t in enumerate(space.tabs):
         off = t.offset
         if len(off) > 1:

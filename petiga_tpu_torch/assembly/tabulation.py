@@ -501,10 +501,12 @@ def tabulate_elements(
             detX, E = inverse_map(X)
             S = push_forward(N, E)
             if face is None:
-                weight = weight * detX
+                if not space.collocation:
+                    weight = weight * detX
             else:
                 dS, normal = get_normal(face[0], face[1], X[1])
-                weight = weight * dS
+                if not space.collocation:
+                    weight = weight * dS
         # dim != nsd (manifold): shapes stay parametric and the form
         # builds its metric from gmap1/gmap2
     elif face is not None:

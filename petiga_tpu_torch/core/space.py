@@ -1,7 +1,6 @@
 """The tensor-product discretization object (analog of PetIGA's ``IGA``).
 
-Port of :mod:`petiga_tpu.core.space` (Galerkin spaces; collocation is
-not ported).  A :class:`Space` bundles ``dim`` axes (knot vectors +
+Port of :mod:`petiga_tpu.core.space`.  A :class:`Space` bundles ``dim`` axes (knot vectors +
 tabulation tables), the number of dofs per control point, optional NURBS
 weights / geometry control points / property fields, the boundary tables
 and the element -> control-point closure map.  Everything is computed
@@ -25,7 +24,7 @@ import torch
 
 from .. import resolve_device
 from .axis import Axis
-from .basis import BasisType, Tabulation, tabulate
+from .basis import BasisType, Tabulation, tabulate, tabulate_collocation
 from .quadrature import Rule
 
 __all__ = ["Space", "BoundaryCondition"]
@@ -61,6 +60,7 @@ class Space:
         rule: Optional[Sequence[Rule]] = None,
         quadrature: Optional[Sequence[int]] = None,
         basis_type: str = BasisType.BSPLINE,
+        collocation: bool = False,
         order: Optional[int] = None,
         nsd: Optional[int] = None,
         dtype: torch.dtype = torch.float32,
@@ -75,6 +75,7 @@ class Space:
         self.dtype = dtype
         self.device = resolve_device(device)
         self.basis_type = basis_type
+        self.collocation = bool(collocation)
         maxp = max(ax.p for ax in self.axes)
         self.order = min(maxp, 4) if order is None else int(order)
 
@@ -83,9 +84,14 @@ class Space:
             sizes = quadrature or [ax.p + 1 for ax in self.axes]
             rule = [Rule.legendre(q) for q in sizes]
         self.rules = tuple(rule)
-        self.tabs: tuple[Tabulation, ...] = tuple(
-            tabulate(ax, r, basis_type) for ax, r in zip(self.axes, self.rules)
-        )
+        # per-axis tabulation: quadrature points, or one collocation point
+        # (Greville abscissa) per control point
+        if collocation:
+            self.tabs: tuple[Tabulation, ...] = tuple(
+                tabulate_collocation(ax) for ax in self.axes)
+        else:
+            self.tabs = tuple(
+                tabulate(ax, r, basis_type) for ax, r in zip(self.axes, self.rules))
 
         # geometry / rational weights / properties — set via init_geometry
         self.geometry: Optional[np.ndarray] = None  # (nnodes, nsd)
@@ -374,6 +380,7 @@ class Space:
             dof=self.dof if dof is None else dof,
             rule=self.rules,
             basis_type=self.basis_type,
+            collocation=self.collocation,
             nsd=kw.get("nsd", self.nsd),
             dtype=kw.get("dtype", self.dtype),
             device=self.device,
@@ -384,5 +391,5 @@ class Space:
             f"Space(dim={self.dim}, dof={self.dof}, "
             f"degrees={self.degrees}, elements={self.elem_shape}, "
             f"nodes={self.node_shape}, periodic={self.periodic}, "
-            f"device={self.device}, dtype={self.dtype})"
+            f"collocation={self.collocation}, device={self.device}, dtype={self.dtype})"
         )

@@ -60,10 +60,12 @@ def space_from_reference(space, dtype=torch.float64, device=None) -> Space:
     rules = [Rule(kind=str(r.kind), points=np.array(r.points, dtype=np.float64),
                   weights=np.array(r.weights, dtype=np.float64)) for r in space.rules]
     sp = Space(axes, dof=int(space.dof), rule=rules, basis_type=space.basis_type,
-               order=int(space.order), nsd=int(space.nsd), dtype=dtype, device=device)
+               collocation=bool(space.collocation), order=int(space.order), nsd=int(space.nsd), dtype=dtype, device=device)
     if space.geometry is not None:
         sp.init_geometry(np.array(space.geometry), None if space.rational is None
                          else np.array(space.rational))
+    elif space.rational is not None:  # weights on the identity map
+        sp.rational = np.array(space.rational, dtype=np.float64).reshape(sp.nnodes)
     if space.property is not None:
         sp.set_property(np.array(space.property))
     if space.fix_table is not None:

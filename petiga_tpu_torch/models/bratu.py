@@ -1,6 +1,6 @@
-"""Bratu equation -Δu = λ exp(u) (port of :mod:`petiga_tpu.models.bratu`,
-Galerkin steady and transient forms): Newton–Krylov with the AD or the
-hand-written Jacobian (:func:`solve_bratu`), and Newton with the Jacobian
+"""Bratu equation -Δu = λ exp(u) (port of :mod:`petiga_tpu.models.bratu`:
+Galerkin steady and transient forms, and the collocation residual):
+Newton–Krylov with the AD or the hand-written Jacobian (:func:`solve_bratu`), and Newton with the Jacobian
 assembled by the conv engine from a state-field coefficient
 (:func:`solve_bratu_conv`).
 """
@@ -13,7 +13,8 @@ from ..core.axis import Axis
 from ..core.space import Space
 from ..solve.newton import newton
 
-__all__ = ["bratu_residual", "bratu_jacobian", "bratu_ifunction",
+__all__ = ["bratu_residual", "bratu_jacobian", "bratu_collocation_residual",
+           "bratu_ifunction",
            "bratu_jacobian_coefficients", "make_space", "solve_bratu",
            "solve_bratu_conv"]
 
@@ -32,6 +33,13 @@ def bratu_jacobian(pt, Ue, ctx):
     u = pt.value(Ue)[0]
     J = pt.shape1 @ pt.shape1.T
     return J - lam * torch.exp(u) * torch.outer(pt.shape0, pt.shape0)
+
+
+def bratu_collocation_residual(pt, Ue, ctx):
+    """Collocation residual: -Δu - λ exp(u) at the collocation point."""
+    lam = ctx["lambda"]
+    u = pt.value(Ue)[0]
+    return -pt.del2(Ue)[0] - lam * torch.exp(u)
 
 
 def bratu_ifunction(pt, a, Ve, t, Ue, ctx):

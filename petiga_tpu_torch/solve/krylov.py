@@ -28,6 +28,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils import profiling
+
 __all__ = ["cg", "bicgstab", "gmres", "KrylovResult", "jacobi_preconditioner",
            "block_jacobi_preconditioner"]
 
@@ -87,6 +89,7 @@ def cg(
     Stops when ``‖r‖ <= max(rtol·‖b‖, atol)`` or after ``maxiter``
     iterations, like PETSc's default KSP test; ``iters`` counts the
     operator applications inside the loop."""
+    profiling.count("KSPSolve")
     matvec = _as_matvec(A)
     Mv = M if M is not None else (lambda r: r)
     x = torch.zeros_like(b) if x0 is None else x0

@@ -15,6 +15,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..assembly.assemble import assemble_function, assemble_jacobian
+from ..utils import profiling
 from .krylov import bicgstab, cg, gmres, jacobi_preconditioner
 
 __all__ = ["newton", "NewtonResult"]
@@ -71,6 +72,7 @@ def newton(
     Jacobian assembly and linear solve (``residual_s``, ``jacobian_s``,
     ``solve_s``); with counters the device is synchronised before each
     reading."""
+    profiling.count("SNESSolve")
     shape = (space.nnodes, space.dof)
     U = U0.reshape(shape)
     solver = {"cg": cg, "bicgstab": bicgstab, "gmres": gmres}[linear_solver]

@@ -74,7 +74,8 @@ def assemble_rhs_f64(sp64, A64, forcing: Callable, *, chunk=None):
     sum-factorized load (``MatFreeOperator.load_vector``); the rest the
     tabulated :func:`~petiga_tpu_torch.assembly.assemble.assemble_vector`
     in chunks of ``chunk`` elements."""
-    if not (sp64.has_geometry or sp64.is_rational) and sp64.dof == 1:
+    if (not sp64.collocation and not (sp64.has_geometry or sp64.is_rational)
+            and sp64.dof == 1):
         b = A64.load_vector(forcing)
     else:
         def vecform(pt, ctx):

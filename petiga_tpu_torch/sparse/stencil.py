@@ -23,6 +23,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 __all__ = ["Stencil", "StencilMatrix", "SymmetricStencilMatrix", "stencil_apply"]
 
 
@@ -214,6 +216,7 @@ class StencilMatrix:
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x with x, y of shape (nnodes, dof) (or (nnodes*dof,)):
         the slot loop :func:`stencil_apply`."""
+        profiling.count("MatMult", profiling.spmv_flops(self.stencil))
         s = self.stencil
         flat_in = x.dim() == 1
         xg = x.reshape(tuple(s.node_shape[::-1]) + (s.dof,))
@@ -356,6 +359,7 @@ class SymmetricStencilMatrix:
         return StencilMatrix(s, data)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        profiling.count("MatMult", profiling.spmv_flops(self.stencil))
         s = self.stencil
         dim, dof = s.dim, s.dof
         N_rev = tuple(s.node_shape[::-1])

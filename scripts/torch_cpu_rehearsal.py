@@ -11,6 +11,7 @@ here is a device time.
     python3 scripts/torch_cpu_rehearsal.py elast f64 precond hyper ns
     python3 scripts/torch_cpu_rehearsal.py mg-band      # MG/BJ counts, 8³-32³ f32
     python3 scripts/torch_cpu_rehearsal.py ch-adapt transient
+    python3 scripts/torch_cpu_rehearsal.py surface      # mapped, colloc, io_post, ...
 
 Prints each phase's JSON lines and, last, the failed checks; exits 1 if
 any failed.
@@ -88,11 +89,45 @@ def transient(chip_smoke):
                          "launches_plain": chip_smoke.PHASE_LAUNCHES[name]["full"], **out})
 
 
+# The JAX package's values at the sizes of the ``surface`` rehearsal
+# (scripts/torch_geometry_reference.py at these nel; the SHA-256 values do
+# not depend on the size).
+SURFACE_SMALL_REF = {
+    "mapped_l2": {8: 0.00020203666484600749, 16: 2.400931701074951e-05},
+    "colloc_l2": {8: 0.002336609567914552, 16: 0.0005719517851971403},
+    "bratu256": {"newton_iters": 4, "max_u": 0.3959599712789957},
+}
+
+
+def surface(chip_smoke):
+    """The single-device user-surface phases at 8³ (bratu_colloc at 16²,
+    the f64 L2 checks at 8³ and 16³ against the JAX package's values
+    there)."""
+    import tempfile
+
+    from petiga_tpu_torch.models import poisson
+
+    cs = chip_smoke
+    cs.GEOMETRY_REF.update(SURFACE_SMALL_REF)
+    with tempfile.TemporaryDirectory() as d:
+        sp_map, U_map, op_map, b_map = cs.phase_mapped(8, False, d)
+        cs.phase_mapped_f64(d, nels=(8, 16))
+        sp_nurbs = cs.phase_mapped(8, True, d)[0]
+        cs.phase_colloc(nel=8, nels_f64=(8, 16))
+        cs.phase_bratu_colloc(nel=16)
+        cs.phase_separable(nel=8, nel_f64=6)
+        sp = poisson.make_space(3, p=2, nel=8)
+        op, b = poisson.assemble_poisson(sp)
+        U, _ = poisson.solve_system(op, b, rtol=1e-6)
+        cs.phase_io_post(sp, U, sp_map, U_map, op_map, b_map, sp_nurbs, d)
+        cs.phase_log_view(op_map)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="+",
                     choices=["elast", "f64", "precond", "hyper", "ns", "mg-band", "ch-adapt",
-                             "transient"])
+                             "transient", "surface"])
     args = ap.parse_args(argv)
     _on_the_cpu()
     import chip_smoke as cs
@@ -116,6 +151,8 @@ def main(argv=None):
             cs.phase_ch_adapt(nel=8, expect={"outcome": "t_end"})
         elif ph == "transient":
             transient(cs)
+        elif ph == "surface":
+            surface(cs)
         else:
             mg_band(cs)
         cs.emit({"rehearsal": ph, "host_s": time.perf_counter() - t0})

@@ -6,6 +6,8 @@ Both evaluate the same tensor-product tables and add the same element
 blocks, so tabulation leaves agree at 1e-13 and assembled data at 1e-12
 (entries of order 1; only the order of sums differs)."""
 
+import math
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -200,10 +202,27 @@ def test_assemble_system_planes_matches_jax(dim, nel, chunk):
 
 
 def test_waiting_branches_raise():
-    """``assemble_separable_planes`` still waits (ROADMAP item 12); the
-    nonlinear entry points are held in ``test_torch_nonlinear.py``."""
-    _, ts = _pair(jpoisson.make_space(2, p=1, nel=2, dtype=jnp.float64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``assemble_separable_planes`` (sum-factorized Kronecker element
+    matrices) gives the reference's generic operator and load vector (the
+    case of ``tests/test_planes_assembly.py::test_separable_assembly_identical``),
+    in several slab chunks; it refuses what the reference refuses."""
+    js, ts = _pair(jpoisson.make_space(3, p=2, nel=6, dtype=jnp.float64))
+    ctx = {"c": 0.4, "k": 1.3}
+    jA, jb = jasm.assemble_system(js, jpoisson.poisson_system, ctx)
+
+    def f(x):
+        return (0.4 + 1.3 * 3 * math.pi**2) * torch.prod(torch.sin(math.pi * x))
+
+    op, b = tasm.assemble_separable_planes(ts, c=0.4, kappa=1.3, forcing=f, chunk=72)
+    x = np.random.default_rng(0).normal(size=(js.nnodes, 1))
+    _close(op.matvec(torch.as_tensor(x)), jA.matvec(jnp.asarray(x)), 1e-13)
+    _close(b, jb, 1e-14)
+    periodic = interop.space_from_reference(
+        JSpace([JAxis.uniform(p=2, nel=4, periodic=True)], dtype=jnp.float64), device="cpu")
+    with pytest.raises(ValueError, match="open axes"):
+        tasm.assemble_separable_planes(periodic)
+    ts.init_geometry(1.5 * ts.greville_coordinates())
+    with pytest.raises(ValueError, match="identity map"):
         tasm.assemble_separable_planes(ts)
 
 

@@ -121,13 +121,23 @@ def test_reaction_diffusion_system_matches(sym):
 
 
 def test_unported_routes_raise():
-    """The conv engine's route still queued names its ROADMAP item:
-    mapped geometry (8.6).  dof > 1 blocks (8.7) are ported since and take
-    (dof, dof) channel blocks: scalar channels on a dof = 2 space raise."""
+    """The conv engine's former waiting routes: mapped geometry (8.6) now
+    assembles the reference's planes and load vector (a stretched and
+    sheared map of the Poisson space, 1e-12); dof > 1 blocks (8.7) take
+    (dof, dof) channel blocks, so scalar channels on a dof = 2 space
+    raise."""
+    jsp = jpoisson.make_space(2, p=2, nel=4, dtype=jnp.float64)
+    G = np.asarray(jsp.greville_coordinates())
+    jsp.init_geometry(np.stack([1.5 * G[:, 0] + 0.2 * G[:, 1] ** 2, G[:, 1]], axis=1))
+    jop, jb = jassemble(jsp, jcoef, {"c": 0.0, "k": 1.0},
+                        forcing=jpoisson.poisson_forcing(0.0, 1.0))
     sp = tpoisson.make_space(2, p=2, nel=4, dtype=torch.float64, device="cpu")
-    sp.init_geometry(1.5 * sp.greville_coordinates())
-    with pytest.raises(NotImplementedError, match="8.6"):
-        tconv.assemble_coefficient_planes(sp, tconv.poisson_coefficients)
+    sp.init_geometry(np.array(jsp.geometry))
+    op, b = tconv.assemble_coefficient_planes(sp, tconv.poisson_coefficients,
+                                              forcing=tpoisson.poisson_forcing(0.0, 1.0))
+    v = np.random.default_rng(0).normal(size=(sp.nnodes, 1))
+    assert _rel(op.matvec(torch.as_tensor(v)).numpy(), np.asarray(jop.matvec(jnp.asarray(v)))) <= 1e-12
+    assert _rel(b.numpy(), np.asarray(jb)) <= 1e-12
     sp2 = tpoisson.make_space(2, p=2, nel=4, dtype=torch.float64, device="cpu").clone(dof=2)
     with pytest.raises(ValueError, match="blocks"):
         tconv.assemble_coefficient_planes(sp2, tconv.poisson_coefficients)
