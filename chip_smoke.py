@@ -147,7 +147,37 @@ entry points at the sizes its users run:
   log_view
         ``profiling.log_view()`` of the events these phases counted and
         timed (CUDA events), after 20 timed ``MatMult`` products of the
-        mapped operator.
+        mapped operator;
+  dist128
+        the distributed layer (``parallel.dist.DistSpace``) at full width:
+        the m128 flagship, f32, over 4 ranks of one gloo job that share the
+        card (``parallel.launch``; pgrid (1, 2, 2), so corner folds run),
+        q-batched pointwise assembly per rank, halo folds, Jacobi-CG to
+        the m128 phase's rtol through ``stencil_spmv_full`` on each rank's
+        halo-extended block (overlapped: interior kernel on a side stream,
+        frame correction per onion slab).  Checks: 45 ± 3 iterations, L2
+        within 5 % of ``L2_REF`` m128, ``true_rel_residual`` ≤ 30× its floor
+        (the ranks' f64 solve of the same system), one rank's extended-block
+        product equal to its plain version (1e-5, as ``phase_kernels`` holds
+        f32), the sharded checkpoint of U (pgrid (1, 2, 2)) reloaded
+        serially bit for bit, every rank's halo staging "host" (gloo does
+        not take device pointers in send/recv).  Prints the distance to the
+        m128 phase's single-device U (two f32 CG runs, unchecked), and per
+        rank ms per CG iteration split into kernel, halo exchange and
+        all-reduce (CUDA events); the extended-block row of the kernel
+        table (rank 0 timed while the others wait), its library call a
+        CSR matvec of (local rows) × (extended columns);
+  dist_f64
+        the same flow in f64 at 16³ on the same ranks: within 1e-10 of the
+        single-device f64 solve;
+  dist_nccl1
+        world size 1 on NCCL (no staging) at 32³ f64: within 1e-6 of the
+        single-device solve;
+  dist_dryrun
+        ``entry.dryrun_multichip(4)`` on the card (gloo): its seven steps
+        pass their reference assertions.  One H100 shows the distributed
+        layer's correctness and per-rank kernel time, not multi-GPU
+        scaling.
 
 The elasticity rows of the kernel table are timed on the 96³ operator
 (dof 3: 1125 planes full, 567 symmetric); their library call is a CSR
@@ -187,7 +217,8 @@ Usage, from the repository root, on a machine with one CUDA GPU:
     python3 chip_smoke.py
 
 Prints one JSON line per phase (and the wall seconds of each block of
-phases), the ``log_view`` table, the ``nvidia-smi`` name/power-limit line,
+phases; a rank's own lines come from its process), the ``log_view``
+table, the ``nvidia-smi`` name/power-limit line,
 a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Exits non-zero, without that last line, when no CUDA device is present
 or any phase fails.
@@ -709,12 +740,14 @@ def library_csr_ms(op, xb, shape, structural_nnz, min_frac=0.9):
     return min(runs)
 
 
-def kernel_row(name, op, shape, replaces, xb, library_ms):
+def kernel_row(name, op, shape, replaces, xb, library_ms, x_nodes=None):
     """One row of the kernel table: the kernel against its plain version
     on ``xb``, both timed (kernel, plain, kernel, plain: 20 calls each),
     the kernel's median over 5 × 20 calls and its time per product in a
     back-to-back loop of 200, its bound and the library call's ms;
-    ``launches`` is filled in at the end of the run."""
+    ``launches`` is filled in at the end of the run.  ``x_nodes``: the
+    entries of x the product reads per field (default the rows; a rank's
+    extended block reads its halo frame too)."""
     from petiga_tpu_torch.sparse import spmv
 
     sym = op.kind == "sym"
@@ -740,7 +773,7 @@ def kernel_row(name, op, shape, replaces, xb, library_ms):
     isz, nn = op.DT.element_size(), op.st.nnodes
     need = op.nplanes * nn * isz
     gbps = need / (ms * 1e-3) / 1e9
-    nbytes = need + 2 * nn * op.dof * isz
+    nbytes = need + (nn + (nn if x_nodes is None else x_nodes)) * op.dof * isz
     flops = 2 * op.nplanes * nn * (2 if sym else 1)
     t_bytes = 1e3 * nbytes / HBM_BYTES_S
     t_ops = 1e3 * flops / PEAK_FLOP_S[op.DT.dtype]
@@ -2434,6 +2467,251 @@ def phase_log_view(op):
     check("log_view:events", len(lines) > 1, events=len(lines) - 1)
 
 
+
+# ------------------------------------------------ the distributed layer
+
+# ranks that share the one card in the dist128/dist_f64/dist_dryrun phases
+DIST_RANKS = 4
+
+
+def ext_block_csr(op):
+    """The product of a rank's extended-block operator (dof 1) as a CSR
+    ``torch.sparse`` matrix of (local rows) × (extended columns), built on
+    the card from its planes: row n, column ``ext(n) + c_s``, value plane
+    s at ``ext(n)``; zero entries dropped.  Returns ``(csr, nnz)``."""
+    if op.dof != 1:
+        raise ValueError("ext_block_csr: dof 1 only")
+    dev = op.device
+    ext = torch.zeros((), dtype=torch.int64, device=dev)
+    stride = 1
+    for d in range(op.st.dim):  # node order: axis 0 fastest
+        i = torch.arange(op.st.node_shape[d], device=dev) + op.pads[d][0]
+        ext = (i * stride).reshape((-1,) + (1,) * d) + ext
+        stride *= op.Ne[d]
+    ext = ext.reshape(-1)
+    cols, order = torch.sort(ext[:, None] + torch.as_tensor(op.shifts, device=dev)[None, :],
+                             dim=1)
+    vals = op.DT[:, ext].T.gather(1, order)  # (nloc, K)
+    keep = vals != 0
+    crow = torch.zeros(ext.numel() + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(keep.sum(dim=1), 0)
+    nnz = int(crow[-1])
+    csr = torch.sparse_csr_tensor(crow.to(torch.int32), cols[keep].to(torch.int32), vals[keep],
+                                  size=(ext.numel(), op.next), check_invariants=False)
+    return csr, nnz
+
+
+def dist_quality(ds, data, b, x):
+    """``true_rel_residual`` of the f32 distributed solution in f64 and its
+    floor (the f64 solution of the same distributed system, rounded to
+    f32), both through the ranks' f64 kernel products."""
+    data64, b64 = data.double(), b.double()
+    planes = ds.local_planes(data64)
+    bn = math.sqrt(ds._dot(b64, b64).item())
+
+    def rel_res(v):
+        r = b64 - ds.matvec_local(data64, v.double(), DT_loc=planes)
+        return math.sqrt(ds._dot(r, r).item()) / bn
+
+    x64, it64, _ = ds.cg(data64, b64, rtol=1e-10, maxiter=5000)
+    return {"true_rel_residual": rel_res(x), "floor_rel_residual": rel_res(x64.float()),
+            "f64_solve_iters": it64}
+
+
+def dist_ranks(tmpdir):
+    """The body of each rank of the dist128 and dist_f64 phases (gloo, the
+    ranks share the card).  Returns per rank its launches, CG spans and
+    halo staging; rank 0 adds the solutions, checks' values and the
+    extended-block kernel row."""
+    import torch.distributed as tdist
+
+    from petiga_tpu_torch.io.sharded import load_sharded, save_sharded
+    from petiga_tpu_torch.models import poisson
+    from petiga_tpu_torch.parallel.dist import DistSpace, Spans
+    from petiga_tpu_torch.parallel.launch import rank_device
+    from petiga_tpu_torch.sparse import spmv
+
+    dev = rank_device(None)
+    torch.cuda.set_device(dev)
+    rank = tdist.get_rank()
+    out = {"rank": rank, "device": str(dev)}
+    # ---- dist128: the m128 flagship in f32, pgrid (1, 2, 2)
+    sp = poisson.make_space(3, p=2, nel=128, dtype=torch.float32, device=dev)
+    ds = DistSpace(sp, device=dev)
+    for k in spmv.LAUNCHES:
+        spmv.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    data, b = ds.assemble_system(poisson.poisson_system_q, {"c": 0.0, "k": 1.0}, order=1)
+    t_asm = sync_s(t0)
+    ds.spans = Spans()
+    t0 = time.perf_counter()
+    x, iters, res = ds.cg(data, b, rtol=1e-6, maxiter=2000)
+    t_cg = sync_s(t0)
+    spans = ds.spans.ms()
+    ds.spans = None
+    U = ds.crop_flat(x)
+    out["dist128_launches"] = dict(spmv.LAUNCHES)
+    out.update(pgrid=ds.pgrid, L=ds.L, halo_staging=ds.halo_staging, assembly_s=t_asm,
+               cg_s=t_cg, cg_iters=iters, cg_residual=float(res),
+               spans={k: {"ms_per_iter": v["ms"] / max(iters, 1), "n": v["n"]}
+                      for k, v in spans.items()},
+               cg_ms_per_iter=1e3 * t_cg / max(iters, 1))
+    out["quality"] = dist_quality(ds, data, b, x)
+    # the sharded checkpoint of U under this pgrid, reloaded serially by rank 0
+    save_sharded(ds, x, tmpdir, "U128")
+    if rank == 0:
+        out["U"] = U.cpu().numpy()
+        out["l2_error"] = poisson.l2_error(sp, U)
+        out["sharded_bitwise"] = bool(np.array_equal(load_sharded(tmpdir, "U128"), out["U"]))
+    # one rank's extended-block product on the kernel against its plain
+    # version (on the solution's halo-exchanged block and on a seeded
+    # probe) and the library call, timed on the probe while the other
+    # ranks wait (the solution's A·U cancels to b, too hard a test of a
+    # CSR's f32 sums)
+    planes = ds.local_planes(data)
+    x_ext = ds.halo_gather(x)
+    if rank == 0:
+        from petiga_tpu_torch.sparse.spmv import StencilOperator
+
+        op = StencilOperator(planes.op.st, dtype=torch.float32, device=dev,
+                             ext_pads=planes.op.pads)
+        op._set_planes(planes.DT)
+        probe = torch.randn(x_ext.shape, device=dev,
+                            generator=torch.Generator("cuda").manual_seed(2))
+        xb = op.pack_ext(probe)
+        out["kernel_rel_err"] = max(kernel_vs_plain(op, op.pack_ext(x_ext))[1],
+                                    kernel_vs_plain(op, xb)[1])
+        csr, nnz = ext_block_csr(op)
+        xf = probe.reshape(-1)
+        y_lib = csr @ xf
+        y_k = op.unpack_vec(op._kernel(op.DT, xb)).reshape(-1)
+        lib_rel = float((y_lib - y_k).abs().max() / y_k.abs().max())
+        lib_ms = min(time_ms(lambda: csr @ xf, reps=20) for _ in range(2))
+        del csr
+        out["kernel_row"] = kernel_row("stencil_spmv_full", op, "dist128_rank0",
+                                       f"{PALLAS}:303", xb, lib_ms, x_nodes=op.next)
+        out["library"] = {"nnz": nnz, "rel_vs_kernel": lib_rel, "ms": lib_ms}
+    del data, b, x, planes, x_ext
+    tdist.barrier()
+    # ---- dist_f64: the same flow in f64 at nel 16
+    for k in spmv.LAUNCHES:
+        spmv.LAUNCHES[k] = 0
+    sp16 = poisson.make_space(3, p=2, nel=16, dtype=torch.float64, device=dev)
+    ds16 = DistSpace(sp16, device=dev)
+    U16, info16 = ds16.solve_system(poisson.poisson_system_q, {"c": 0.0, "k": 1.0}, order=1,
+                                    rtol=1e-13)
+    out["dist_f64_launches"] = dict(spmv.LAUNCHES)
+    out["f64"] = {"pgrid": ds16.pgrid, "iters": info16["iters"]}
+    if rank == 0:
+        out["f64"]["U"] = U16.cpu().numpy()
+    return out
+
+
+def nccl1_rank():
+    """World size 1 on NCCL at nel 32 (f64): the NCCL path, which stages
+    nothing; returns the solution, launches and staging."""
+    from petiga_tpu_torch.models import poisson
+    from petiga_tpu_torch.parallel.dist import DistSpace
+    from petiga_tpu_torch.parallel.launch import rank_device
+    from petiga_tpu_torch.sparse import spmv
+
+    dev = rank_device(None)
+    torch.cuda.set_device(dev)
+    for k in spmv.LAUNCHES:
+        spmv.LAUNCHES[k] = 0
+    sp = poisson.make_space(3, p=2, nel=32, dtype=torch.float64, device=dev)
+    ds = DistSpace(sp, device=dev)
+    U, info = ds.solve_system(poisson.poisson_system_q, {"c": 0.0, "k": 1.0}, order=1,
+                              rtol=1e-10)
+    return {"U": U.cpu().numpy(), "iters": info["iters"], "backend": ds.backend,
+            "halo_staging": ds.halo_staging, "pgrid": ds.pgrid,
+            "launches": dict(spmv.LAUNCHES)}
+
+
+def phase_dist(U_single):
+    """dist128 and dist_f64 on DIST_RANKS gloo ranks that share the card,
+    then dist_nccl1 on one NCCL rank; ``U_single`` is the m128 phase's
+    single-device solution.  Returns the extended-block kernel row."""
+    from petiga_tpu_torch.models import poisson
+    from petiga_tpu_torch.parallel.launch import launch
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        ranks = launch(dist_ranks, DIST_RANKS, (tmpdir,), backend="gloo", timeout=600.0)
+    r0 = ranks[0]
+    PHASE_LAUNCHES["dist128"] = {k: sum(r["dist128_launches"][k] for r in ranks)
+                                 for k in ("full", "sym")}
+    PHASE_LAUNCHES["dist_f64"] = {k: sum(r["dist_f64_launches"][k] for r in ranks)
+                                  for k in ("full", "sym")}
+    Us = U_single.reshape(-1).double().cpu().numpy()
+    Ud = r0["U"].reshape(-1).astype(np.float64)
+    q = r0["quality"]
+    emit({"phase": "dist128", "ranks": DIST_RANKS, "backend": "gloo", "pgrid": r0["pgrid"],
+          "L": r0["L"], "halo_staging": [r["halo_staging"] for r in ranks],
+          "assembly_s": [r["assembly_s"] for r in ranks], "cg_iters": r0["cg_iters"],
+          "cg_residual": r0["cg_residual"], "cg_s": [r["cg_s"] for r in ranks],
+          "cg_ms_per_iter": [r["cg_ms_per_iter"] for r in ranks],
+          "cg_spans_ms_per_iter": [r["spans"] for r in ranks],
+          "l2_error": r0["l2_error"], "l2_error_ref": L2_REF["m128"], **q,
+          "max_diff_vs_single_rel": float(np.max(np.abs(Ud - Us)) / np.max(np.abs(Us))),
+          "library": r0["library"], "launches": PHASE_LAUNCHES["dist128"],
+          "wall_s": time.perf_counter() - t0})
+    check("dist128:cg_iters", abs(r0["cg_iters"] - ITERS_REF["m128"]) <= 3,
+          value=r0["cg_iters"], want="45 +- 3")
+    check("dist128:l2_error", abs(r0["l2_error"] - L2_REF["m128"]) <= 0.05 * L2_REF["m128"],
+          value=r0["l2_error"], want=f"{L2_REF['m128']} +- 5%")
+    lim = RESIDUAL_OVER_FLOOR * q["floor_rel_residual"]
+    check("dist128:true_rel_residual", q["true_rel_residual"] <= lim,
+          value=q["true_rel_residual"], want=f"<= {RESIDUAL_OVER_FLOOR:g} x floor {lim:.3e}")
+    check("dist128:kernel_vs_plain", r0["kernel_rel_err"] <= 1e-5,
+          rel_err=r0["kernel_rel_err"], tol=1e-5)
+    check("dist128:library_agrees", r0["library"]["rel_vs_kernel"] <= 1e-5,
+          rel=r0["library"]["rel_vs_kernel"])
+    check("dist128:sharded_bitwise", r0["sharded_bitwise"])
+    check("dist128:halo_staging", all(r["halo_staging"] == "host" for r in ranks),
+          value=[r["halo_staging"] for r in ranks], want="host (gloo on CUDA tensors)")
+
+    sp16 = poisson.make_space(3, p=2, nel=16, dtype=torch.float64)
+    U16, info16 = poisson.solve_poisson(sp16, rtol=1e-13)
+    ref = U16.reshape(-1).cpu().numpy()
+    rel = float(np.max(np.abs(r0["f64"]["U"].reshape(-1) - ref)) / np.max(np.abs(ref)))
+    emit({"phase": "dist_f64", "pgrid": r0["f64"]["pgrid"], "iters": r0["f64"]["iters"],
+          "single_iters": info16["iters"], "rel_vs_single": rel,
+          "launches": PHASE_LAUNCHES["dist_f64"]})
+    check("dist_f64:vs_single", rel <= 1e-10, value=rel, want="<= 1e-10")
+
+    t1 = time.perf_counter()
+    n1 = launch(nccl1_rank, 1, backend="nccl", timeout=300.0)[0]
+    PHASE_LAUNCHES["dist_nccl1"] = n1["launches"]
+    sp32 = poisson.make_space(3, p=2, nel=32, dtype=torch.float64)
+    U32, _ = poisson.solve_poisson(sp32, rtol=1e-10)
+    ref = U32.reshape(-1).cpu().numpy()
+    rel = float(np.max(np.abs(n1["U"].reshape(-1) - ref)) / np.max(np.abs(ref)))
+    emit({"phase": "dist_nccl1", "backend": n1["backend"], "pgrid": n1["pgrid"],
+          "halo_staging": n1["halo_staging"], "iters": n1["iters"], "rel_vs_single": rel,
+          "launches": n1["launches"], "wall_s": time.perf_counter() - t1})
+    check("dist_nccl1:vs_single", rel <= 1e-6, value=rel, want="<= 1e-6")
+    check("dist_nccl1:no_staging", n1["backend"] == "nccl" and n1["halo_staging"] == "device",
+          backend=n1["backend"], halo_staging=n1["halo_staging"])
+    return r0["kernel_row"]
+
+
+def phase_dist_dryrun():
+    """``dryrun_multichip(DIST_RANKS)`` on the card: its seven steps hold
+    their reference assertions (a failed step raises)."""
+    from petiga_tpu_torch import entry
+
+    t0 = time.perf_counter()
+    out = entry.dryrun_multichip(DIST_RANKS)
+    PHASE_LAUNCHES["dist_dryrun"] = out["launches"]
+    emit({"phase": "dist_dryrun", "summary": out["summary"], "device": out["device"],
+          "halo_staging": out["halo_staging"], "launches_rank0": out["launches"],
+          "wall_s": time.perf_counter() - t0})
+    check("dist_dryrun:steps", out["summary"].startswith(f"dryrun_multichip({DIST_RANKS})")
+          and "kernel-cg L2=" in out["summary"] and out["device"].startswith("cuda"),
+          summary=out["summary"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
@@ -2527,6 +2805,12 @@ def main():
         phase_nonlinear_f64()
     PHASE_SECONDS["poisson_and_nonlinear"] = time.perf_counter() - t_start
 
+    # ---- the distributed layer: ranks that share the card, one NCCL rank
+    t0 = time.perf_counter()
+    dist_row = phase_dist(x)
+    phase_dist_dryrun()
+    PHASE_SECONDS["dist"] = time.perf_counter() - t0
+
     # ------------------- f32 solutions against their own systems, in f64
     pointwise_quality(poisson, sp, U_pw, info_pw)
     del U_pw, info_pw
@@ -2570,6 +2854,7 @@ def main():
         if op.kind == "full":
             library_ms[shape] = library_csr_ms(op, xb, shape, structural[shape])
         kernels.append(kernel_row(name, op, shape, replaces, xb, library_ms[shape]))
+    kernels.append(dist_row)
 
     # CG host-sync cost: the real loop vs the same steps with no
     # residual read
@@ -2677,7 +2962,8 @@ def main():
                                    "ch128", "nonlinear_f64", "elast96", "elast_f64",
                                    "precond", "hyper", "ns", "ch_adapt512",
                                    "ch_adapt256", "mapped128", "nurbs128", "colloc",
-                                   "bratu_colloc", "separable256", "io_post", "log_view")
+                                   "bratu_colloc", "separable256", "io_post", "log_view",
+                                   "dist128", "dist_f64", "dist_dryrun", "dist_nccl1")
                           + tuple(name for name, _ in TRANSIENT)),
                          ("sym", ("m256", "m256_refine", "elast96", "mapped128"))):
         for ph in phases:

@@ -26,7 +26,31 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["core", "sparse", "assembly", "solve", "models", "interop", "entry",
-           "default_device", "resolve_device"]
+           "default_device", "resolve_device",
+           "DistSpace", "DistThetaStepper", "DistAlphaStepper", "save_sharded", "load_sharded",
+           "schwarz_local_preconditioner", "mg_local_preconditioner",
+           "fieldsplit_local_preconditioner"]
+
+# the distributed layer's names, imported on first use (the reference's
+# flat API imports them eagerly, petiga_tpu/__init__.py:78-95)
+_LAZY = {
+    "DistSpace": "parallel.dist",
+    "DistThetaStepper": "parallel.dist",
+    "DistAlphaStepper": "parallel.dist",
+    "save_sharded": "io.sharded",
+    "load_sharded": "io.sharded",
+    "schwarz_local_preconditioner": "solve.schwarz",
+    "mg_local_preconditioner": "solve.multigrid",
+    "fieldsplit_local_preconditioner": "solve.fieldsplit",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def default_device() -> torch.device:

@@ -223,16 +223,19 @@ def accumulate_vector_dyn(space, b_grid, Fe, z0):
     return accumulate_vector(space, b_grid, Fe, z0)
 
 
-def accumulate_box(space, ebox, Ke=None, Fe=None, z0: int = 0):
+def accumulate_box(space, ebox, Ke=None, Fe=None, z0: int = 0, Gm=None, Gv=None):
     """Shift-accumulate the element blocks of a regular element SUB-BOX
-    into box-local grids (the conv engine's generic boxes): ``nen``
-    static slice adds per chunk, like the whole-grid path.
+    into box-local grids (the conv engine's generic boxes and a
+    distributed rank's owned elements): ``nen`` static slice adds per
+    chunk, like the whole-grid path.
 
     Args:
       ebox: full box extents (e_0..e_{dim-1}).
       Ke: (B, nen, nen, dof, dof) or None; Fe: (B, nen, dof) or None,
         with B = kz·prod(ebox[:-1]) covering slabs [z0, z0+kz) of the
         box's slowest axis, axis-0 fastest.
+      Gm/Gv: accumulators on the box-extended node grid from an earlier
+        chunk, added to in place; allocated when None.
 
     Returns ``(Gm, Gv)``: ``((ebox_d - 1 + nen_d)_rev..., K, dof, dof)``
     and ``(..., dof)`` on the box-extended node grid (None for an absent
@@ -247,13 +250,14 @@ def accumulate_box(space, ebox, Ke=None, Fe=None, z0: int = 0):
     kz = E.shape[0] // int(np.prod(ebox[:-1])) if dim > 1 else E.shape[0]
     chunk_rev = (kz,) + tuple(ebox[:-1][::-1])
     opts = dict(dtype=E.dtype, device=E.device)
-    Gm = Gv = None
     if Ke is not None:
         KeG = Ke.reshape(chunk_rev + (nen,) + tuple(nshape[::-1]) + (dof, dof))
-        Gm = torch.zeros(next_rev + sbox_rev + (dof, dof), **opts)
+        shape = next_rev + sbox_rev + (dof, dof)
+        Gm = torch.zeros(shape, **opts) if Gm is None else Gm.view(shape)
     if Fe is not None:
         FeG = Fe.reshape(chunk_rev + (nen, dof))
-        Gv = torch.zeros(next_rev + (dof,), **opts)
+        if Gv is None:
+            Gv = torch.zeros(next_rev + (dof,), **opts)
     for a in range(nen):
         am = [int(locs[d][a]) for d in range(dim)]
         gsl = tuple(
@@ -261,9 +265,9 @@ def accumulate_box(space, ebox, Ke=None, Fe=None, z0: int = 0):
                   am[dim - 1 - g] + (z0 if g == 0 else 0) + chunk_rev[g])
             for g in range(dim)
         )
-        if Gm is not None:
+        if Ke is not None:
             Gm[gsl + _slot_box(space, am)] += KeG[(Ellipsis, a) + (slice(None),) * (dim + 2)]
-        if Gv is not None:
+        if Fe is not None:
             Gv[gsl] += FeG[..., a, :]
     if Gm is not None:
         Gm = Gm.reshape(next_rev + (int(np.prod(sbox_rev)), dof, dof))

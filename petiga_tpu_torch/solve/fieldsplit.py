@@ -20,9 +20,8 @@ Two combinators, as PETSc's ``-pc_fieldsplit_type``:
 (any of the preconditioner factories: Jacobi, BBB, multigrid, …).  The
 multiplicative sweep's coupling products run on the stencil kernel
 (``fast_operator()``); the reference applies them by its slot loop.
-
-Not ported yet: ``fieldsplit_local_preconditioner`` (the distributed
-variant, ROADMAP Queue 1 item 15).
+:func:`fieldsplit_local_preconditioner` is the distributed variant for
+:class:`~petiga_tpu_torch.parallel.dist.DistSpace`'s solvers.
 """
 
 from __future__ import annotations
@@ -35,7 +34,7 @@ import torch
 from ..sparse.stencil import StencilMatrix
 from .krylov import jacobi_preconditioner
 
-__all__ = ["field_split", "fieldsplit_preconditioner"]
+__all__ = ["field_split", "fieldsplit_preconditioner", "fieldsplit_local_preconditioner"]
 
 
 class _RectBlock:
@@ -115,3 +114,78 @@ def fieldsplit_preconditioner(
         return z.reshape(r.shape)
 
     return M
+
+
+def fieldsplit_local_preconditioner(
+    groups: Optional[Sequence] = None,
+    kind: str = "additive",
+    inner: str = "jacobi",
+    inner_iters: int = 5,
+):
+    """Field-split preconditioning under domain decomposition — the
+    parallel ``-pc_type fieldsplit`` role (petigadm.c:294-383).
+
+    Returns a ``pc`` callable for ``DistSpace.cg/bicgstab/gmres``'s
+    ``pc=`` argument.  Field(-group) sub-blocks are slices of the rank's
+    stencil block; the halo-exchange ``matvec_local`` is dof-agnostic,
+    so each sub-block keeps full distributed semantics.
+
+    ``inner``: "jacobi" (stationary — safe inside CG) or "cg" (a fixed
+    ``inner_iters``-step Jacobi-PCG sub-solve per application; the PC
+    then varies between outer iterations, so pair it with
+    ``DistSpace.gmres``).  ``kind`` as in
+    :func:`fieldsplit_preconditioner`."""
+    if inner not in ("jacobi", "cg"):
+        raise ValueError("inner must be 'jacobi' or 'cg'")
+    if kind not in ("additive", "multiplicative"):
+        raise ValueError("kind must be 'additive' or 'multiplicative'")
+
+    def pc(ds, data_loc):
+        dof = ds.space.dof
+        gs = [(f,) for f in range(dof)] if groups is None else [tuple(g) for g in groups]
+
+        def sub(gi, gj):
+            return data_loc[..., list(gi), :][..., list(gj)]
+
+        def make_inner(dsub):
+            dinv = ds._jacobi_inv(dsub)
+            if inner == "jacobi":
+                return lambda r: r * dinv
+
+            def Msub(r):
+                planes = ds.local_planes(dsub)
+                x = torch.zeros_like(r)
+                z = r * dinv
+                p_ = z
+                rz = ds._dot(r, z)
+                rr = r
+                for _ in range(inner_iters):
+                    Ap = ds.matvec_local(dsub, p_, DT_loc=planes)
+                    pAp = ds._dot(p_, Ap)
+                    alpha = torch.where(pAp > 0, rz / torch.where(pAp == 0, 1.0, pAp), 0.0)
+                    x = x + alpha * p_
+                    rr = rr - alpha * Ap
+                    z = rr * dinv
+                    rznew = ds._dot(rr, z)
+                    beta = torch.where(rz > 0, rznew / torch.where(rz == 0, 1.0, rz), 0.0)
+                    p_ = z + beta * p_
+                    rz = rznew
+                return x
+
+            return Msub
+
+        inners = [make_inner(sub(g, g)) for g in gs]
+
+        def M(r):
+            z = torch.zeros_like(r)
+            for i, (g, Mg) in enumerate(zip(gs, inners)):
+                ri = r[..., list(g)]
+                if kind == "multiplicative":
+                    for gj in gs[:i]:
+                        ri = ri - ds.matvec_local(sub(g, gj), z[..., list(gj)])
+                z[..., list(g)] = Mg(ri)
+            return z
+
+        return M
+
+    return pc

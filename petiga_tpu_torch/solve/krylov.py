@@ -5,7 +5,9 @@ point- and block-Jacobi preconditioners.
 ``A`` is an object with ``.matvec`` or a callable ``x -> A@x``; ``M`` an
 optional preconditioner ``r -> M^{-1} r``.  Vectors may be node-ordered
 or packed (``StencilOperator.pack_vec``): the solvers only need dots and
-axpys.
+axpys.  ``dot(a, b) -> 0-d tensor`` replaces the local inner product: the
+distributed layer passes its all-reduced dot, so every rank iterates on
+the same scalars (:class:`~petiga_tpu_torch.parallel.dist.DistSpace`).
 
 The loops run on the host and read ``‖r‖²`` every iteration (every
 restart cycle for GMRES) to test convergence, which synchronises with the
@@ -83,12 +85,14 @@ def cg(
     rtol: float = 1e-8,
     atol: float = 0.0,
     maxiter: int = 10000,
+    dot: Optional[Callable] = None,
 ) -> KrylovResult:
     """Preconditioned conjugate gradients (SPD operators).
 
     Stops when ``‖r‖ <= max(rtol·‖b‖, atol)`` or after ``maxiter``
     iterations, like PETSc's default KSP test; ``iters`` counts the
     operator applications inside the loop."""
+    dot = _dot if dot is None else dot
     profiling.count("KSPSolve")
     matvec = _as_matvec(A)
     Mv = M if M is not None else (lambda r: r)
@@ -96,22 +100,22 @@ def cg(
     r = b - matvec(x)
     z = Mv(r)
     p = z
-    rz = _dot(r, z)
-    bnorm = torch.sqrt(_dot(b, b)).item()
+    rz = dot(r, z)
+    bnorm = torch.sqrt(dot(b, b)).item()
     tol2 = max(rtol * bnorm, atol) ** 2
     k = 0
-    while k < maxiter and _dot(r, r).item() > tol2:
+    while k < maxiter and dot(r, r).item() > tol2:
         Ap = matvec(p)
-        alpha = rz / _dot(p, Ap)
+        alpha = rz / dot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         z = Mv(r)
-        rz_new = _dot(r, z)
+        rz_new = dot(r, z)
         beta = rz_new / rz
         p = z + beta * p
         rz = rz_new
         k += 1
-    return KrylovResult(x=x, iters=k, residual=torch.sqrt(_dot(r, r)))
+    return KrylovResult(x=x, iters=k, residual=torch.sqrt(dot(r, r)))
 
 
 def bicgstab(
@@ -123,29 +127,31 @@ def bicgstab(
     rtol: float = 1e-8,
     atol: float = 0.0,
     maxiter: int = 10000,
+    dot: Optional[Callable] = None,
 ) -> KrylovResult:
     """Preconditioned BiCGStab for nonsymmetric operators; same stopping
     test as :func:`cg`, and it restarts at a breakdown ``(r̂, r) = 0`` (see
     the module docstring).  The scalars stay on the device: ``‖r‖²`` and
     ``(r̂, r)`` are read together once per iteration."""
+    dot = _dot if dot is None else dot
     matvec = _as_matvec(A)
     Mv = M if M is not None else (lambda r: r)
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     rhat = r
-    bnorm = torch.sqrt(_dot(b, b)).item()
+    bnorm = torch.sqrt(dot(b, b)).item()
     tol2 = max(rtol * bnorm, atol) ** 2
     one = torch.ones((), dtype=b.dtype, device=b.device)
     rho = alpha = omega = one
     v = p = torch.zeros_like(b)
     k = 0
     while k < maxiter:
-        rho_new = _dot(rhat, r)
-        rr, rho_h = torch.stack([_dot(r, r), rho_new]).tolist()
+        rho_new = dot(rhat, r)
+        rr, rho_h = torch.stack([dot(r, r), rho_new]).tolist()
         if not rr > tol2:
             break
         if rho_h == 0.0:  # breakdown: restart from the current residual
-            rhat, rho_new = r, _dot(r, r)
+            rhat, rho_new = r, dot(r, r)
             rho = alpha = omega = one
             v = p = torch.zeros_like(b)
         beta = torch.where(omega != 0, (rho_new / rho) * (alpha / omega),
@@ -153,18 +159,18 @@ def bicgstab(
         p = r + beta * (p - omega * v)
         phat = Mv(p)
         v = matvec(phat)
-        rv = _dot(rhat, v)
+        rv = dot(rhat, v)
         alpha = torch.where(rv != 0, rho_new / rv, torch.zeros_like(rv))
         s = r - alpha * v
         shat = Mv(s)
         t = matvec(shat)
-        tt = _dot(t, t)
-        omega = torch.where(tt != 0, _dot(t, s) / tt, torch.zeros_like(tt))
+        tt = dot(t, t)
+        omega = torch.where(tt != 0, dot(t, s) / tt, torch.zeros_like(tt))
         x = x + alpha * phat + omega * shat
         r = s - omega * t
         rho = rho_new
         k += 1
-    return KrylovResult(x=x, iters=k, residual=torch.sqrt(_dot(r, r)))
+    return KrylovResult(x=x, iters=k, residual=torch.sqrt(dot(r, r)))
 
 
 def gmres(
@@ -177,6 +183,7 @@ def gmres(
     atol: float = 0.0,
     restart: int = 30,
     maxiter: int = 1000,
+    dot: Optional[Callable] = None,
 ) -> KrylovResult:
     """Restarted GMRES(m) with left preconditioning.
 
@@ -186,27 +193,28 @@ def gmres(
     (minimum norm, like the reference's ``lstsq``).  ``maxiter`` counts inner iterations and is
     converted to ``ceil(maxiter/restart)`` cycles; ``iters`` reports
     ``cycles·restart``, an upper bound, as in the reference."""
+    dot = _dot if dot is None else dot
     cycles = -(-int(maxiter) // int(restart))
     matvec = _as_matvec(A)
     Mv = M if M is not None else (lambda r: r)
     x = torch.zeros_like(b) if x0 is None else x0
     shape = b.shape
     dt = b.dtype
-    tol = max(rtol * torch.sqrt(_dot(b, b)).item(), atol)
+    tol = max(rtol * torch.sqrt(dot(b, b)).item(), atol)
 
     def arnoldi_cycle(x):
         r = Mv(b - matvec(x)).reshape(-1)
-        beta = torch.sqrt(_dot(r, r))
+        beta = torch.sqrt(dot(r, r))
         V = torch.zeros((restart + 1, r.numel()), dtype=dt, device=b.device)
         H = torch.zeros((restart + 1, restart), dtype=dt, device=b.device)
         V[0] = torch.where(beta > 0, r / beta, torch.zeros_like(r))
         for j in range(restart):
             w = Mv(matvec(V[j].reshape(shape))).reshape(-1)
             for i in range(j + 1):  # modified Gram-Schmidt
-                h = _dot(V[i], w)
+                h = dot(V[i], w)
                 H[i, j] = h
                 w = w - h * V[i]
-            hn = torch.sqrt(_dot(w, w))
+            hn = torch.sqrt(dot(w, w))
             H[j + 1, j] = hn
             V[j + 1] = torch.where(hn > 1e-30, w / hn, torch.zeros_like(w))
         e1 = torch.zeros(restart + 1, dtype=dt)
@@ -216,7 +224,7 @@ def gmres(
 
     def rnorm(x):
         r = b - matvec(x)
-        return torch.sqrt(_dot(r, r))
+        return torch.sqrt(dot(r, r))
 
     k = 0
     while k < cycles and rnorm(x).item() > tol:

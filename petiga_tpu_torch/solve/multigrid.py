@@ -9,10 +9,8 @@ operators are re-assembled on each level; the V-cycle smooths with
 weighted Jacobi and solves the coarsest level by CG with a fixed budget.
 Every smoother, residual and coarse product goes through
 ``A.fast_operator()``, that is, through the stencil SpMV kernel on the
-card.
-
-Not ported yet: ``mg_local_preconditioner`` (the distributed variant,
-ROADMAP Queue 1 item 15).
+card.  :func:`mg_local_preconditioner` is the distributed variant for
+:class:`~petiga_tpu_torch.parallel.dist.DistSpace`'s solvers.
 """
 
 from __future__ import annotations
@@ -31,6 +29,7 @@ __all__ = [
     "prolongation_1d",
     "MGHierarchy",
     "mg_preconditioner",
+    "mg_local_preconditioner",
 ]
 
 
@@ -222,3 +221,86 @@ def mg_preconditioner(
         return vcycle(nlev - 1, r.reshape(-1, dof)).reshape(r.shape)
 
     return M
+
+
+def mg_local_preconditioner(
+    assemble: Callable,
+    *,
+    levels: Optional[int] = None,
+    nsmooth: int = 2,
+    omega: float = 0.6,
+    min_nel: int = 4,
+    coarse_rtol: float = 1e-8,
+    coarse_maxiter: int = 200,
+):
+    """Multigrid under domain decomposition — the role PCMG plays when
+    the reference runs parallel (petigapcmg.c + PETSc's distributed MG).
+
+    Returns a ``pc`` callable for ``DistSpace.cg/bicgstab/gmres``'s
+    ``pc=`` argument.  The finest level is smoothed distributed
+    (weighted Jacobi through the halo-exchange ``matvec_local``); the
+    residual is restricted straight to the next level by the exact
+    knot-insertion transfer, as per-rank partial contractions
+    all-reduced into a *replicated* coarse vector (the agglomeration
+    endgame of parallel MG).  Every rank then solves the same coarse
+    problem by CG preconditioned with the serial V-cycle over the
+    remaining levels, and prolongs the result into its block.
+
+    ``assemble(space) -> StencilMatrix`` builds the coarse operators
+    (Galerkin-by-reassembly, as in :meth:`MGHierarchy.build`)."""
+    from .krylov import cg, jacobi_preconditioner
+
+    def pc(ds, data_loc):
+        sp = ds.space
+        dim, dof = sp.dim, sp.dof
+        L = tuple(int(n) for n in ds.L)
+        dev, dt = data_loc.device, data_loc.dtype
+        # the finest operator already lives distributed in data_loc
+        sentinel = object()
+        hier = MGHierarchy.build(sp, lambda s: sentinel if s is sp else assemble(s),
+                                 levels=levels, min_nel=min_nel)
+        if len(hier.spaces) < 2:
+            raise ValueError("grid too coarse for a multigrid hierarchy")
+        sub = MGHierarchy(hier.spaces[:-1], hier.operators[:-1], hier.prolongs[:-1])
+        Ac = sub.operators[-1]
+        coarse_M = (mg_preconditioner(sub, nsmooth=nsmooth, omega=omega)
+                    if len(sub.spaces) > 1 else jacobi_preconditioner(Ac))
+        Ac_op = Ac.fast_operator() if hasattr(Ac, "fast_operator") else Ac
+        cs = sub.spaces[-1]
+        Nc = cs.node_shape
+        # this rank's rows of the finest transfer, padded to the rank
+        # grid (rows past the real nodes are zero: padding stays decoupled)
+        P_loc = []
+        for d in range(dim):
+            P = prolongation_1d(cs.axes[d], sp.axes[d])
+            Pp = np.zeros((ds.Np[d], Nc[d]))
+            Pp[: P.shape[0]] = P
+            start = ds.coords[d] * L[d]
+            P_loc.append(torch.as_tensor(Pp[start:start + L[d]], dtype=dt, device=dev))
+        dinv = ds._jacobi_inv(data_loc)
+
+        def Av(v):
+            return ds.matvec_local(data_loc, v)
+
+        def transfer(Ps, x):
+            for d in range(dim):
+                gax = dim - 1 - d
+                x = torch.movedim(torch.tensordot(Ps[d], x, dims=([1], [gax])), 0, gax)
+            return x
+
+        def smooth(x, b):
+            for _ in range(nsmooth):
+                x = x + omega * dinv * (b - Av(x))
+            return x
+
+        def M(r_loc):
+            x = smooth(torch.zeros_like(r_loc), r_loc)
+            rc = ds._psum(transfer([P.T for P in P_loc], r_loc - Av(x)))
+            res = cg(Ac_op, rc.reshape(-1, dof), M=coarse_M, rtol=coarse_rtol,
+                     maxiter=coarse_maxiter)
+            x = x + transfer(P_loc, res.x.reshape(tuple(Nc[::-1]) + (dof,)))
+            return smooth(x, r_loc)
+
+        return M
+
+    return pc

@@ -24,8 +24,9 @@ pair with BiCGStab/GMRES).  Every product with ``A`` (the coarse
 operator's columns, the balancing residuals) runs on the stencil kernel
 (``A.fast_operator()``).
 
-Not ported yet: ``schwarz_local_preconditioner`` (the distributed
-variant, ROADMAP Queue 1 item 15).
+:func:`schwarz_local_preconditioner` is the same two-level method under
+domain decomposition, for the distributed solvers of
+:class:`~petiga_tpu_torch.parallel.dist.DistSpace`.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["schwarz_preconditioner", "subdomain_boxes"]
+__all__ = ["schwarz_preconditioner", "schwarz_local_preconditioner", "subdomain_boxes"]
 
 
 def subdomain_boxes(N, nsub):
@@ -209,3 +210,209 @@ def schwarz_preconditioner(
         return (z2 + coarse_solve(rv - Af.matvec(z2))).reshape(r.shape)
 
     return M
+
+
+def _coarse_ids(ds, L, nsub, starts):
+    """Per local row its (rank, box) coarse id, and per (row, slot) the
+    coarse id of the column's (rank, box), int64 (the reference builds
+    int64 ids on the mode path, schwarz.py:568-569)."""
+    sp = ds.space
+    dim, K = sp.dim, ds.st.K
+    m = ds.pgrid
+    nloc = int(np.prod(L))
+    nsub_loc = int(np.prod(nsub))
+    boxtab = [np.searchsorted(starts[d], np.arange(L[d]), side="right") - 1 for d in range(dim)]
+    lgrids = np.meshgrid(*[np.arange(n) for n in L], indexing="ij")
+    lc = np.stack([g.ravel(order="F") for g in lgrids], axis=-1)
+    row_box = np.zeros(nloc, np.int64)
+    for d in range(dim - 1, -1, -1):
+        row_box = row_box * nsub[d] + boxtab[d][lc[:, d]]
+    soffs = ds.st.slot_offsets()
+    dev_flat = ds.rank
+    row_cid = dev_flat * nsub_loc + row_box
+    cdev_flat = np.zeros((nloc, K), np.int64)
+    cbox_flat = np.zeros((nloc, K), np.int64)
+    for d in range(dim - 1, -1, -1):
+        g = ds.coords[d] * L[d] + lc[:, d:d + 1] + soffs[None, :, d]
+        if sp.periodic[d]:
+            g = np.mod(g, sp.node_shape[d])
+        else:
+            g = np.clip(g, 0, L[d] * m[d] - 1)
+        cdev = g // L[d]
+        cdev_flat = cdev_flat * m[d] + cdev
+        cbox_flat = cbox_flat * nsub[d] + boxtab[d][g - cdev * L[d]]
+    col_cid = cdev_flat * nsub_loc + cbox_flat
+    return lc, row_cid, col_cid
+
+
+def schwarz_local_preconditioner(
+    *,
+    subdomains=None,
+    overlap=None,
+    coarse: bool = True,
+    restricted: bool = False,
+    coarse_modes=None,
+    max_block: int = MAX_SUBDOMAIN_BLOCK,
+):
+    """Distributed two-level Schwarz — the serial PC above applied inside
+    the ranks' Krylov loops (the role PCBDDC plays under MPI,
+    petigapcbddc.c + petigaksp.c:260-384).
+
+    Returns a ``pc`` callable for ``DistSpace.cg/bicgstab/gmres``'s
+    ``pc=`` argument (``(ds, data_loc) -> Mv``).  Per rank, the owned
+    block is split into subdomain boxes extended by ``overlap`` layers
+    (capped at the stencil width, so every needed row is in the p-wide
+    halo shell the layer already exchanges); the dense subdomain
+    operators come from the halo-gathered stencil rows and are
+    batch-inverted.  Overlaps that cross ranks go through the forward
+    halo (residual gather) and the reverse halo fold (solution scatter).
+
+    The coarse space is one constant per (rank, box, field) on the
+    disjoint owned boxes — or, with ``coarse_modes`` (nmodes, nnodes,
+    dof), each mode restricted to a (rank, box) — with ``A0 = R0 A R0ᵀ``
+    assembled from the local stencil rows and all-reduced, so it is the
+    same on every rank; application is the symmetric balancing form.
+    """
+
+    def pc(ds, data_loc):
+        sp = ds.space
+        st = ds.st
+        dim, dof, K = st.dim, st.dof, st.K
+        p = tuple(int(w) for w in st.widths)
+        L = tuple(int(n) for n in ds.L)
+        dev, dt = data_loc.device, data_loc.dtype
+        ov = tuple(min(p[d], p[d] if overlap is None else int(overlap)) for d in range(dim))
+        nsub = (tuple(max(1, L[d] // 8) for d in range(dim)) if subdomains is None
+                else tuple(int(n) for n in subdomains))
+        starts, sizes = subdomain_boxes(L, nsub)
+        nsub_loc = int(np.prod(nsub))
+        ext = tuple(int(sizes[d].max()) + 2 * ov[d] for d in range(dim))
+        nb = int(np.prod(ext))
+        if nb * dof > max_block:
+            raise ValueError(
+                f"Schwarz subdomain block is {nb * dof} dofs (> max_block={max_block}) — "
+                "use more subdomains per rank or raise max_block explicitly"
+            )
+        Lext = ds.Lext
+        next_ = int(np.prod(Lext))
+        nloc = int(np.prod(L))
+
+        # static tables (the same on every rank: equal padded blocks)
+        grids = np.meshgrid(*[np.arange(e) for e in ext], indexing="ij")
+        local = np.stack([g.ravel(order="F") for g in grids], axis=-1)
+        sub_multi = np.unravel_index(np.arange(nsub_loc), nsub, order="F")
+        idx = np.zeros((nsub_loc, nb), np.int64)
+        valid = np.ones((nsub_loc, nb), bool)
+        owned = np.ones((nsub_loc, nb), bool)
+        stride = 1
+        for d in range(dim):
+            base = p[d] - ov[d] + starts[d][sub_multi[d]]  # extended-block coordinate
+            sz = sizes[d][sub_multi[d]]
+            valid &= local[None, :, d] < (sz[:, None] + 2 * ov[d])
+            owned &= (local[None, :, d] >= ov[d]) & (local[None, :, d] < sz[:, None] + ov[d])
+            idx += (base[:, None] + local[None, :, d]) * stride
+            stride *= Lext[d]
+        owned &= valid
+        idx = np.where(valid, idx, 0)  # entries past a shorter box: masked, kept in range
+        soffs = st.slot_offsets()
+        slot_of = {tuple(soffs[s_]): s_ for s_ in range(K)}
+        off = local[None, :, :] - local[:, None, :]
+        pair_ok = np.all(np.abs(off) <= np.asarray(p), axis=-1)
+        pairs = np.zeros((nb, nb), np.int64)
+        ii, jj = np.nonzero(pair_ok)
+        pairs[ii, jj] = [slot_of[tuple(o)] for o in off[ii, jj]]
+
+        idx_t = torch.as_tensor(idx, device=dev)
+        valid_t = torch.as_tensor(valid, device=dev)
+        scatter_t = torch.as_tensor(owned if restricted else valid, device=dev)
+        zero = torch.zeros((), dtype=dt, device=dev)
+
+        # dense subdomain operators from halo-gathered stencil rows
+        dataK = data_loc.reshape(tuple(L[::-1]) + (K * dof * dof,))
+        data_ext = ds.halo_gather(dataK).reshape(next_, K, dof, dof)
+        Bk = data_ext[idx_t[:, :, None], torch.as_tensor(pairs, device=dev)[None]]
+        mask = valid_t[:, :, None] & valid_t[:, None, :] & torch.as_tensor(pair_ok, device=dev)[None]
+        Bk = torch.where(mask[..., None, None], Bk, zero)
+        B = Bk.permute(0, 1, 3, 2, 4).reshape(nsub_loc, nb * dof, nb * dof)
+        del Bk, mask, data_ext
+        # identity on dead rows (mask, padding, open-boundary shell)
+        dead = (B.abs().sum(dim=2) == 0).to(dt)
+        Binv = torch.linalg.inv(B + torch.diag_embed(dead))
+        del B
+        flat_idx = idx_t.reshape(-1)
+        Lrev = tuple(L[::-1])
+
+        def Av(v):
+            return ds.matvec_local(data_loc, v)
+
+        def local_solves(r_loc):
+            r_ext = ds.halo_gather(r_loc).reshape(next_, dof)
+            re = torch.where(valid_t[..., None], r_ext[idx_t], zero).reshape(nsub_loc, nb * dof)
+            ze = torch.einsum("sij,sj->si", Binv, re).reshape(nsub_loc, nb, dof)
+            ze = torch.where(scatter_t[..., None], ze, zero)
+            zext = torch.zeros((next_, dof), dtype=dt, device=dev).index_add_(
+                0, flat_idx, ze.reshape(-1, dof))
+            return ds.halo_fold(zext.reshape(tuple(Lext[::-1]) + (dof,)))
+
+        if not coarse:
+            return local_solves
+
+        lc, row_cid, col_cid = _coarse_ids(ds, L, nsub, starts)
+        row_cid_t = torch.as_tensor(row_cid, device=dev)
+        col_cid_t = torch.as_tensor(col_cid, device=dev)
+        vals = data_loc.reshape(nloc, K, dof, dof)
+        ndev = ds.world
+        if coarse_modes is None:
+            # constants per (rank, box, field)
+            nm = dof
+            Wr = torch.eye(dof, dtype=dt, device=dev).expand(nloc, dof, dof)  # (i, m, a)
+            We = Wr[:, None].expand(nloc, K, dof, dof)
+        else:
+            modes = np.asarray(coarse_modes, np.float64)
+            nm = modes.shape[0]
+            if modes.shape[1:] != (sp.nnodes, dof):
+                raise ValueError(f"coarse_modes must be (nmodes, {sp.nnodes}, {dof})")
+            Wfull = torch.as_tensor(np.moveaxis(modes, 0, 1).reshape(sp.nnodes, nm * dof),
+                                    dtype=dt, device=dev)
+            W_loc = ds.pad_grid(Wfull)
+            W_ext = ds.halo_gather(W_loc).reshape(next_, nm, dof)
+            Wr = W_loc.reshape(nloc, nm, dof)
+            col_ext = np.zeros((nloc, K), np.int64)
+            stride = 1
+            for d in range(dim):
+                col_ext += (p[d] + lc[:, d:d + 1] + soffs[None, :, d]) * stride
+                stride *= Lext[d]
+            We = W_ext[torch.as_tensor(col_ext, device=dev)]  # (nloc, K, nm, dof)
+        nc = ndev * nsub_loc * nm
+        contrib = torch.einsum("ikab,ima,iknb->ikmn", vals, Wr, We)
+        ar = torch.arange(nm, device=dev)
+        I2 = (row_cid_t[:, None, None, None] * nm + ar[None, None, :, None]).expand(contrib.shape)
+        J2 = (col_cid_t[:, :, None, None] * nm + ar[None, None, None, :]).expand(contrib.shape)
+        A0 = torch.zeros((nc, nc), dtype=dt, device=dev)
+        A0.index_put_((I2.reshape(-1), J2.reshape(-1)), contrib.reshape(-1), accumulate=True)
+        A0 = ds._psum(A0)
+        if coarse_modes is None:
+            dead0 = (torch.diagonal(A0) == 0.0).to(dt)
+            A0 = A0 + torch.diag_embed(dead0 * dead0)
+        else:
+            A0 = A0 + torch.diag_embed((torch.diagonal(A0).abs() < 1e-30).to(dt))
+        A0inv = torch.linalg.inv(A0)
+        rows_nm = (row_cid_t[:, None] * nm + ar[None, :]).reshape(-1)
+
+        def coarse_solve(r_loc):
+            rv = r_loc.reshape(nloc, dof)
+            rm = torch.einsum("ima,ia->im", Wr, rv)
+            rc = torch.zeros((nc,), dtype=dt, device=dev).index_add_(0, rows_nm, rm.reshape(-1))
+            z0 = A0inv @ ds._psum(rc)
+            z = torch.einsum("ima,im->ia", Wr, z0[rows_nm].reshape(nloc, nm))
+            return z.reshape(r_loc.shape)
+
+        def M(r_loc):
+            r_loc = r_loc.reshape(Lrev + (dof,))
+            z1 = coarse_solve(r_loc)
+            z2 = z1 + local_solves(r_loc - Av(z1))
+            return z2 + coarse_solve(r_loc - Av(z2))
+
+        return M
+
+    return pc

@@ -6,7 +6,9 @@ Port of :mod:`petiga_tpu.sparse.pallas_spmv`.  The operator is stored as
                  one column per node of the *extended* grid ``Ne`` — the
                  node grid plus a halo of ``p_d`` on both sides of every
                  periodic axis (``Ne = N`` for open axes), ``next =
-                 prod(Ne)``.  Halo columns hold zero planes.
+                 prod(Ne)``, or plus explicit ``ext_pads`` (the halo frame
+                 of a distributed rank's block).  Halo columns hold zero
+                 planes.
   xb  (dof, G + next + G)  a packed vector: one row per field, ``G =
                  max|c_s|`` guard entries on each side (zero), periodic
                  halos holding wrapped copies.
@@ -56,22 +58,27 @@ LAUNCHES = {"full": 0, "sym": 0}
 # ------------------------------------------------------------------ layout
 
 
-def ext_shape(stencil: Stencil) -> tuple:
-    """Extended node shape: periodic axes grow by a halo of p on both
-    sides."""
-    return tuple(
-        N + 2 * p if per else N
-        for N, p, per in zip(stencil.node_shape, stencil.widths, stencil.periodic)
-    )
+def default_pads(stencil: Stencil) -> tuple:
+    """Per-axis (lo, hi) grid pads: a halo of p on both sides of every
+    periodic axis, none on open axes."""
+    return tuple((p, p) if per else (0, 0)
+                 for p, per in zip(stencil.widths, stencil.periodic))
 
 
-def flat_shifts(stencil: Stencil) -> np.ndarray:
+def ext_shape(stencil: Stencil, pads=None) -> tuple:
+    """Extended node shape: every axis grows by its (lo, hi) pads
+    (:func:`default_pads` when None)."""
+    pads = default_pads(stencil) if pads is None else pads
+    return tuple(N + lo + hi for N, (lo, hi) in zip(stencil.node_shape, pads))
+
+
+def flat_shifts(stencil: Stencil, pads=None) -> np.ndarray:
     """(K,) constant flat-index shift per slot in the extended index
     space (axis-0 fastest)."""
     offs = stencil.slot_offsets()
     c = np.zeros(offs.shape[0], dtype=np.int64)
     stride = 1
-    for d, Ne in enumerate(ext_shape(stencil)):
+    for d, Ne in enumerate(ext_shape(stencil, pads)):
         c += offs[:, d] * stride
         stride *= Ne
     return c
@@ -213,10 +220,18 @@ class StencilOperator:
 
     Build with :meth:`from_planes` / :meth:`from_planes_symmetric` (the
     zero-copy path of plane assembly) or pack node-grid data with
-    :meth:`pack_planes`.  ``kind`` is ``"full"`` or ``"sym"``."""
+    :meth:`pack_planes`.  ``kind`` is ``"full"`` or ``"sym"``.
+
+    ``ext_pads=((lo, hi), ...)`` per spatial axis replaces the derived
+    periodic halos with an explicit frame, as ``PallasStencilOperator(
+    ext_pads=)`` does for the distributed layer: a rank's block of an
+    open local stencil, framed by the p-wide halo its neighbours send.
+    The frame's plane columns are zero; :meth:`pack_ext` packs an
+    already-extended vector, :meth:`packed_mask` marks the owned
+    entries."""
 
     def __init__(self, stencil: Stencil, *, dtype=torch.float32, device=None,
-                 kind: str = "full"):
+                 kind: str = "full", ext_pads=None):
         if kind not in ("full", "sym"):
             raise ValueError(f"kind must be 'full' or 'sym', got {kind!r}")
         if kind == "sym" and any(stencil.periodic):
@@ -226,9 +241,13 @@ class StencilOperator:
         self.dtype = dtype
         self.device = resolve_device(device)
         self.dof = st.dof
-        self.Ne = ext_shape(st)
+        self.pads = default_pads(st) if ext_pads is None else tuple(
+            (int(lo), int(hi)) for lo, hi in ext_pads)
+        if len(self.pads) != st.dim:
+            raise ValueError(f"ext_pads: want {st.dim} (lo, hi) pairs, got {self.pads}")
+        self.Ne = ext_shape(st, self.pads)
         self.next = int(np.prod(self.Ne))
-        shifts = flat_shifts(st)
+        shifts = flat_shifts(st, self.pads)
         self.G = int(np.max(np.abs(shifts)))
         self.shifts = tuple(int(c) for c in shifts)
         if kind == "sym":
@@ -239,6 +258,7 @@ class StencilOperator:
         self.nplanes = len(used) * self.dof * self.dof
         self._shift_t = torch.tensor(used, dtype=torch.int32, device=self.device)
         self._any_per = any(st.periodic)
+        self._framed = any(pad != (0, 0) for pad in self.pads)
         self.DT = None
 
     @classmethod
@@ -266,36 +286,39 @@ class StencilOperator:
 
     def _to_ext(self, xg: torch.Tensor, wrap: bool) -> torch.Tensor:
         """(N_rev..., C) node grid -> (Ne_rev..., C) extended grid:
-        periodic halos hold wrapped copies (``wrap``) or zeros."""
+        periodic halos hold wrapped copies (``wrap``), every other pad
+        zeros."""
         st = self.st
         dim = st.dim
         for g in range(dim):
             d = dim - 1 - g
-            if not st.periodic[d]:
+            lo, hi = self.pads[d]
+            if lo == hi == 0:
                 continue
-            p = st.widths[d]
             n = xg.shape[g]
-            if wrap:
-                lo, hi = xg.narrow(g, n - p, p), xg.narrow(g, 0, p)
+            if wrap and st.periodic[d]:
+                lo_t, hi_t = xg.narrow(g, n - lo, lo), xg.narrow(g, 0, hi)
             else:
                 shape = list(xg.shape)
-                shape[g] = p
-                lo = hi = xg.new_zeros(shape)
-            xg = torch.cat([lo, xg, hi], dim=g)
+                shape[g] = lo
+                lo_t = xg.new_zeros(shape)
+                shape[g] = hi
+                hi_t = xg.new_zeros(shape)
+            xg = torch.cat([lo_t, xg, hi_t], dim=g)
         return xg
 
     def _from_ext(self, y: torch.Tensor) -> torch.Tensor:
         """(next, C...) on the extended grid -> (nnodes, C...): crop the
-        periodic halos."""
+        pads."""
         st = self.st
-        if not self._any_per:
+        if not self._framed:
             return y
         dim = st.dim
         trail = tuple(y.shape[1:])
         yg = y.reshape(tuple(self.Ne[::-1]) + trail)
         sl = tuple(
-            slice(st.widths[dim - 1 - g], st.widths[dim - 1 - g] + st.node_shape[dim - 1 - g])
-            if st.periodic[dim - 1 - g] else slice(None)
+            slice(self.pads[dim - 1 - g][0],
+                  self.pads[dim - 1 - g][0] + st.node_shape[dim - 1 - g])
             for g in range(dim)
         )
         return yg[sl].reshape((st.nnodes,) + trail)
@@ -317,7 +340,8 @@ class StencilOperator:
         return self.embed(xe.T)
 
     def unpack_vec(self, xb: torch.Tensor, flat: bool = False) -> torch.Tensor:
-        """Packed -> (nnodes, dof) (or flat (nnodes·dof,))."""
+        """Packed -> (nnodes, dof) (or flat (nnodes·dof,)): the pads
+        cropped."""
         y = self._from_ext(xb[:, self.G:self.G + self.next].T)
         return y.reshape(-1) if flat else y.contiguous()
 
@@ -327,6 +351,19 @@ class StencilOperator:
         out = torch.zeros(self.dof, self.next + 2 * self.G, dtype=y.dtype, device=y.device)
         out[:, self.G:self.G + self.next] = y
         return out
+
+    def pack_ext(self, x_ext: torch.Tensor) -> torch.Tensor:
+        """Pack an ALREADY-extended grid ``(Ne_rev..., dof)`` — a rank's
+        halo-exchanged block — into the packed layout (zero guards)."""
+        return self.embed(x_ext.reshape(self.next, self.dof).T)
+
+    def packed_mask(self) -> torch.Tensor:
+        """(dof, G+next+G) 1/0 mask of the owned entries (zero on guards
+        and pads), for exact dots on packed vectors whose halos hold
+        copies."""
+        ones = torch.ones(self.st.nnodes, self.dof, dtype=self.dtype, device=self.device)
+        xg = ones.reshape(tuple(self.st.node_shape[::-1]) + (self.dof,))
+        return self.pack_ext(self._to_ext(xg, wrap=False))
 
     # --------------------------------------------------------------- apply
 

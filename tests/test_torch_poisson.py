@@ -192,7 +192,9 @@ def test_pointwise_engine_matches_jax(dim, nel, continuity):
 def test_entry_matches_jax():
     """``entry()``'s step (assemble_system + at most 30 Jacobi-CG
     iterations at rtol 1e-5) on a 4³ f64 mesh against the JAX package's,
-    and the real f32 8³ entry point on the CPU."""
+    and the real f32 8³ entry point on the CPU; ``dryrun_multichip``
+    without a device runs on the card or raises (its CPU run is
+    tests/test_torch_dist.py::test_dryrun_multichip_cpu)."""
     import __graft_entry__ as jentry
     from petiga_tpu_torch import entry as tentry
 
@@ -208,5 +210,6 @@ def test_entry_matches_jax():
     x, res = fn(*args)
     assert x.shape == (10**3, 1) and x.dtype == torch.float32
     assert bool(torch.isfinite(x).all()) and float(res) < 1e-3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tentry.dryrun_multichip(4)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            tentry.dryrun_multichip(4)

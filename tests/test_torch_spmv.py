@@ -98,3 +98,34 @@ def test_wrapper_rejects_bad_arguments():
         spmv.stencil_spmv_full(op.DT, xb.float(), op._shift_t, op.G)
     with pytest.raises(ValueError):
         spmv.stencil_spmv_full(op.DT[:-1], xb, op._shift_t, op.G)
+
+
+@pytest.mark.parametrize("dof", [1, 2])
+def test_ext_pads_block_matches_pallas(dof):
+    """A rank's halo-extended block (``ext_pads``, the distributed
+    layer's layout): planes, ``pack_ext``, the product and
+    ``packed_mask`` against ``PallasStencilOperator(ext_pads=)``."""
+    shape, widths = (5, 4), (1, 2)
+    pads = tuple((p, p) for p in widths)
+    jst = JStencil(node_shape=shape, widths=widths, periodic=(False, False), dof=dof)
+    tst = interop.as_stencil(jst)
+    data = random_stencil_data(jst, 7 + dof)  # (nnodes, K, dof, dof)
+    grid = data.reshape(shape[::-1] + (-1,))
+    ext = tuple(n + 2 * p for n, p in zip(shape, widths))
+    x_ext = np.random.default_rng(dof).normal(size=ext[::-1] + (dof,))
+    jop = PallasStencilOperator(stencil=jst, dtype=jnp.float64, interpret=True, ext_pads=pads)
+    y_ref = jop._unpack_y(jop._kernel(jop.pack_planes(jnp.asarray(grid)),
+                                      jop.pack_ext(jnp.asarray(x_ext))))
+    op = spmv.StencilOperator(tst, dtype=torch.float64, device="cpu", ext_pads=pads)
+    assert op.Ne == ext and op.next == int(np.prod(ext))
+    DT = op.pack_planes(torch.as_tensor(grid))
+    y = op.unpack_vec(op._kernel(DT, op.pack_ext(torch.as_tensor(x_ext))))
+    assert _rel(y.numpy(), y_ref) <= RTOL
+    # the kernel's plain version on this layout, called directly
+    yb = torch.zeros_like(op.pack_ext(torch.as_tensor(x_ext)))
+    spmv._spmv_full_plain(DT, op.pack_ext(torch.as_tensor(x_ext)), op.shifts, op.G, yb)
+    assert _rel(op.unpack_vec(yb).numpy(), y_ref) <= RTOL
+    jm = np.asarray(jop.packed_mask()).reshape(dof, -1)[:, jop.G * 128: jop.G * 128 + jop.next]
+    tm = op.packed_mask()
+    np.testing.assert_array_equal(tm[:, op.G:op.G + op.next].numpy(), jm)
+    assert float(tm[:, :op.G].abs().sum() + tm[:, op.G + op.next:].abs().sum()) == 0.0
