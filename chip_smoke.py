@@ -177,7 +177,35 @@ entry points at the sizes its users run:
         ``entry.dryrun_multichip(4)`` on the card (gloo): its seven steps
         pass their reference assertions.  One H100 shows the distributed
         layer's correctness and per-rank kernel time, not multi-GPU
-        scaling.
+        scaling;
+  native
+        the native host-setup library (``petiga_tpu_torch/native.py``,
+        ``csrc/host/native_core.cpp``) built by the host compiler: the 128³
+        p=2 closure map equal to its numpy route, ``bspline_ders`` on 2²⁰
+        points within 1e-13 of its numpy route, the native call counter;
+        host seconds of both routes and of a 256³ space's set-up by each;
+  api   the reference's quickstart (``petiga_tpu/__init__.py:9-22``)
+        through ``from petiga_tpu_torch import ...`` at 3-D p=2 128³ f32,
+        Dirichlet on every face: CG to rtol 1e-6 on the full kernel, its
+        true residual within 30x its floor; ``StencilOperator.from_symmetric``
+        (the symmetric kernel) against the full product, ``stencil_matvec``
+        against the slot loop (1e-5), both operators' kernels against their
+        plain versions, ``StencilMatrix.zeros`` on the card;
+  examples
+        the six example programs, each ``main(argv)`` on the card through
+        its command line, launches counted per example: Poisson at 128³ in
+        f64, its L2 held to the f64 phase's at its printed digits; Bratu
+        256², elasticity 48³ f64, hyperelasticity 12³ f64, Cahn–Hilliard
+        256² (AD and conv Jacobians, 5 steps) and the distributed example
+        at 64³ f64 with its MG preconditioner over 4 gloo ranks, each held
+        to the JAX package's printed results at the same arguments
+        (``EXAMPLES_REF``, from ``scripts/torch_examples_reference.py``:
+        floats to 1e-8 or one unit in the last printed digit, counts within
+        one).  Each example's kernel calls are captured at the shapes and
+        dtype the example gives them (``kernel_inputs``; in the
+        distributed example on each rank, its halo-framed blocks) and held
+        against the plain versions on the captured x and a seeded probe
+        (1e-12 in f64).
 
 The elasticity rows of the kernel table are timed on the 96³ operator
 (dof 3: 1125 planes full, 567 symmetric); their library call is a CSR
@@ -225,9 +253,11 @@ or any phase fails.
 """
 
 import contextlib
+import gc
 import importlib.util
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -368,19 +398,77 @@ def _random_operator(st, sym, dtype, seed):
                                               dtype=dtype)
 
 
-def kernel_vs_plain(op, xb):
-    """(max |Δ|, max |Δ| / max |y|) of the kernel against its plain
-    version on the same packed input, both on the card."""
+def launch_vs_plain(kind, DT, xb, shifts, G):
+    """(max |Δ|, max |Δ| / max |y|) of the ``kind`` kernel's wrapper
+    against its plain version on the same packed input, both on the
+    device of ``xb``."""
     from petiga_tpu_torch.sparse import spmv
 
-    sym = op.kind == "sym"
-    y_k = op._kernel(op.DT, xb)
+    sym = kind == "sym"
+    y_k = (spmv.stencil_spmv_sym if sym else spmv.stencil_spmv_full)(DT, xb, shifts, G)
     y_p = torch.zeros_like(y_k)
     plain = spmv._spmv_sym_plain if sym else spmv._spmv_full_plain
-    plain(op.DT, xb, op.shifts_u if sym else op.shifts, op.G, y_p)
-    torch.cuda.synchronize()
+    plain(DT, xb, shifts.tolist(), G, y_p)
     err = float((y_k - y_p).abs().max())
     return err, err / float(y_p.abs().max())
+
+
+def kernel_vs_plain(op, xb):
+    """:func:`launch_vs_plain` of an operator's kernel on ``xb``."""
+    return launch_vs_plain(op.kind, op.DT, xb, op._shift_t, op.G)
+
+
+@contextlib.contextmanager
+def kernel_inputs():
+    """Capture, for each kernel and each planes shape the path gives it,
+    copies of the inputs of its first call with a non-zero x (planes,
+    packed x, shifts, guard), by wrapping the wrappers' common body
+    ``spmv._apply``: the call, its launch and its count are unchanged.
+    Yields the captures, by key."""
+    from petiga_tpu_torch.sparse import spmv
+
+    seen, apply = {}, spmv._apply
+
+    def spy(kind, plain, DT, xb, shifts, G, out):
+        key = (kind, tuple(DT.shape), str(DT.dtype)[6:], G)
+        if key not in seen and bool(xb.any()):
+            seen[key] = (kind, DT.clone(), xb.clone(), shifts.clone(), G)
+        return apply(kind, plain, DT, xb, shifts, G, out)
+
+    spmv._apply = spy
+    try:
+        yield seen
+    finally:
+        spmv._apply = apply
+
+
+def captured_vs_plain(seen):
+    """Each capture of :func:`kernel_inputs` through the kernel and its
+    plain version: on the path's own x and on a seeded probe of its shape.
+    One row per capture, its tolerance 1e-12 in f64 and 1e-5 in f32."""
+    rows = []
+    for (kind, shape, dtype, G), (_, DT, xb, shifts, _) in seen.items():
+        g = torch.Generator(xb.device).manual_seed(5)
+        probe = torch.randn(xb.shape, dtype=xb.dtype, device=xb.device, generator=g)
+        errs = [launch_vs_plain(kind, DT, x, shifts, G) for x in (xb, probe)]
+        rows.append({"kernel": f"stencil_spmv_{kind}", "planes": list(shape), "dtype": dtype,
+                     "G": G, "max_abs_err": max(e for e, _ in errs),
+                     "rel_err": max(r for _, r in errs),
+                     "tol": 1e-12 if DT.dtype == torch.float64 else 1e-5})
+    return rows
+
+
+def example_rank(argv):
+    """The distributed example's rank body (``examples/distributed._rank``)
+    with its kernel inputs captured; the rank's result gains the captures
+    held against the plain versions, after the rank's own launches were
+    read."""
+    from petiga_tpu_torch.examples import distributed
+
+    with kernel_inputs() as seen:
+        res = distributed._rank(argv)
+    res["kernel_vs_plain"] = captured_vs_plain(seen)
+    return res
 
 
 def phase_kernels():
@@ -2712,6 +2800,305 @@ def phase_dist_dryrun():
           summary=out["summary"])
 
 
+# -------------------------------- the front door: native setup, flat API, examples
+
+
+@contextlib.contextmanager
+def native_absent():
+    """The numpy routes of the setup code: the native library reported
+    absent for the duration."""
+    from petiga_tpu_torch import native
+
+    available = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = available
+
+
+def phase_native(nel=128, nel_setup=256, npts=1 << 20):
+    """The native host-setup library (``csrc/host/native_core.cpp``) built
+    at first use on this host: ``Space.mapping`` at ``nel``³ p=2 equal to
+    its numpy route, ``bspline_ders`` on ``npts`` points to 1e-13 of its
+    numpy route, the native call counter showing both routes ran; host
+    seconds of both routes, and of a ``nel_setup``³ space's set-up (the
+    Space and its closure map) by each."""
+    from petiga_tpu_torch import native
+    from petiga_tpu_torch.core import bspline
+    from petiga_tpu_torch.models import poisson
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    t_build = time.perf_counter() - t0
+    check("native:available", ok, error=native.build_error())
+    if not ok:
+        return
+    for k in native.CALLS:
+        native.CALLS[k] = 0
+    sp = poisson.make_space(3, p=2, nel=nel, dtype=torch.float32)
+    t0 = time.perf_counter()
+    m_nat = sp.mapping
+    t_map = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_np = sp.element_nodes(np.arange(sp.nel)).astype(np.int32)
+    t_map_np = time.perf_counter() - t0
+    same = bool(np.array_equal(m_nat, m_np))
+    del m_nat, m_np
+    ax = sp.axes[0]
+    u = np.random.default_rng(5).random(npts)
+    spans = ax.find_span(u)
+    t0 = time.perf_counter()
+    d_nat = bspline.bspline_ders(ax.U, ax.p, spans, u, ax.p)
+    t_ders = time.perf_counter() - t0
+    with native_absent():
+        t0 = time.perf_counter()
+        d_np = bspline.bspline_ders(ax.U, ax.p, spans, u, ax.p)
+        t_ders_np = time.perf_counter() - t0
+    ders_err = float(np.max(np.abs(d_nat - d_np)))
+    calls = dict(native.CALLS)
+    setup = {}
+    for route in ("native", "numpy"):
+        with native_absent() if route == "numpy" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            sp_big = poisson.make_space(3, p=2, nel=nel_setup, dtype=torch.float32)
+            sp_big.mapping
+            setup[route] = time.perf_counter() - t0
+        del sp_big
+    emit({"phase": "native", "build_or_load_s": t_build, "mapping_shape": [sp.nel, sp.nen],
+          "mapping_native_s": t_map, "mapping_numpy_s": t_map_np,
+          "bspline_ders_points": npts, "bspline_ders_native_s": t_ders,
+          "bspline_ders_numpy_s": t_ders_np, "bspline_ders_max_abs_diff": ders_err,
+          f"space_setup_{nel_setup}_native_s": setup["native"],
+          f"space_setup_{nel_setup}_numpy_s": setup["numpy"], "calls": calls})
+    check("native:mapping_equal", same, shape=[sp.nel, sp.nen])
+    check("native:bspline_ders", ders_err <= 1e-13, value=ders_err, want="<= 1e-13")
+    check("native:calls", calls["build_mapping"] >= 1 and calls["bspline_ders"] >= 1,
+          calls=calls)
+
+
+def phase_api(nel=128, chunk=65536):
+    """The reference's quickstart (``petiga_tpu/__init__.py:9-22``) through
+    the flat API on the card at 3-D p=2 ``nel``³, homogeneous Dirichlet on
+    every face (the port's pointwise assembly takes element chunks there,
+    and CG stops at the f32 path's rtol 1e-6); its symmetric storage
+    through ``StencilOperator.from_symmetric``, one product through
+    ``stencil_matvec``, and ``StencilMatrix.zeros``.  The solve is held to
+    its own system in f64 (``true_rel_residual``); outside the counted
+    path, the symmetric operator's and the quickstart operator's kernels
+    against their plain versions, and ``stencil_matvec`` against the slot
+    loop (1e-5, f32)."""
+    from petiga_tpu_torch import (Axis, Space, StencilMatrix, StencilOperator,
+                                  SymmetricStencilMatrix, assemble_system, cg, stencil_matvec)
+    from petiga_tpu_torch.models import poisson
+
+    with counted("api"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp = Space([Axis.uniform(p=2, nel=nel)] * 3, dtype=torch.float32)
+        for d in range(3):
+            for side in range(2):
+                sp.set_boundary_value(d, side, 0, 0.0)
+
+        def laplace(pt, ctx):
+            return pt.shape1 @ pt.shape1.T, pt.shape0
+
+        A, b = assemble_system(sp, laplace, chunk=chunk)
+        t_asm = sync_s(t0)
+        op = A.fast_operator()
+        t0 = time.perf_counter()
+        x, iters, res = cg(op, b, rtol=1e-6)
+        t_cg = sync_s(t0)
+        op_sym = StencilOperator.from_symmetric(SymmetricStencilMatrix.from_full(A))
+        probe = torch.as_tensor(np.random.default_rng(6).normal(size=(sp.nnodes, 1)),
+                                dtype=torch.float32, device=sp.device)
+        y_sym = op_sym @ probe
+        y_sm = stencil_matvec(A, probe)
+        Z = StencilMatrix.zeros(A.stencil)
+        y_zero = stencil_matvec(Z, probe)
+    y_full = op @ probe
+    y_slot = A.matvec(probe)
+    rel_sym = float((y_sym - y_full).abs().max() / y_full.abs().max())
+    rel_sm = float((y_sm - y_slot).abs().max() / y_slot.abs().max())
+    q = solve_quality(poisson, sp, op, b, x)
+    emit({"phase": "api", "nnodes": sp.nnodes, "assembly_s": t_asm, "cg_s": t_cg,
+          "cg_iters": int(iters), "cg_residual": float(res),
+          "true_rel_residual": q["true_rel_residual"],
+          "floor_rel_residual": q["floor_rel_residual"],
+          "sym_vs_full_rel": rel_sym, "stencil_matvec_vs_slot_loop_rel": rel_sm,
+          "zeros_device": str(Z.data.device), "launches": PHASE_LAUNCHES["api"]})
+    check("api:finite", bool(torch.isfinite(x).all()) and tuple(x.shape) == (sp.nnodes, 1),
+          shape=list(x.shape))
+    lim = RESIDUAL_OVER_FLOOR * q["floor_rel_residual"]
+    check("api:true_rel_residual", q["true_rel_residual"] <= lim,
+          value=q["true_rel_residual"], want=f"<= {RESIDUAL_OVER_FLOOR:g} x floor {lim:.3e}")
+    check("api:sym_vs_full", rel_sym <= 1e-5, value=rel_sym, want="<= 1e-5")
+    check("api:stencil_matvec_vs_slot_loop", rel_sm <= 1e-5, value=rel_sm, want="<= 1e-5")
+    check("api:zeros", Z.data.device == probe.device and not bool(Z.data.any())
+          and not bool(y_zero.any()), device=str(Z.data.device))
+    for name, o in (("sym", op_sym), ("full", op)):
+        err, rel = kernel_vs_plain(o, o.pack_vec(probe))
+        check(f"api:kernel_vs_plain:{name}", rel <= 1e-5, max_abs_err=err, rel_err=rel, tol=1e-5)
+
+
+# The JAX package's examples on the CPU at this phase's sizes, in float64:
+# each run's arguments and printed key=value results, as
+# scripts/torch_examples_reference.py prints them (the distributed run on a
+# 4-device CPU mesh, the port's 4 ranks' grid).
+EXAMPLES_REF = {'bratu': {'example': 'bratu',
+                          'argv': ['--dim', '2', '-N', '256'],
+                          'results': [['dim', '2'], ['dof', '1'], ['order', '2'],
+                                      ['geometry', '0'], ['rational', '0'], ['periodic', '0'],
+                                      ['nnp', '258'], ['nel', '256'], ['periodic', '0'],
+                                      ['nnp', '258'], ['nel', '256'], ['iters', '7'],
+                                      ['converged', 'True'], ['max(u)', '1.323452']]},
+                'elasticity': {'example': 'elasticity',
+                               'argv': ['--dim', '3', '-N', '48', '--dtype', 'float64'],
+                               'results': [['dim', '3'], ['dof', '3'], ['order', '2'],
+                                           ['geometry', '0'], ['rational', '0'], ['periodic', '0'],
+                                           ['nnp', '50'], ['nel', '48'], ['periodic', '0'],
+                                           ['nnp', '50'], ['nel', '48'], ['periodic', '0'],
+                                           ['nnp', '50'], ['nel', '48'], ['iters', '99'],
+                                           ['L2', '8.275717e-07']]},
+                'hyperelasticity': {'example': 'hyperelasticity',
+                                    'argv': ['--dim', '3', '-N', '12', '--dtype', 'float64'],
+                                    'results': [['dim', '3'], ['dof', '3'], ['order', '2'],
+                                                ['geometry', '0'], ['rational', '0'],
+                                                ['periodic', '0'], ['nnp', '14'], ['nel', '12'],
+                                                ['periodic', '0'], ['nnp', '14'], ['nel', '12'],
+                                                ['periodic', '0'], ['nnp', '14'], ['nel', '12'],
+                                                ['iters', '6'], ['max|u|', '0.1000']]},
+                'cahnhilliard': {'example': 'cahnhilliard',
+                                 'argv': ['--nel', '256', '--nsteps', '5'],
+                                 'results': [['t', '1.0000e-11'], ['energy', '4.140118e-02'],
+                                             ['mass', '4.508502e-05'], ['t', '2.0000e-11'],
+                                             ['energy', '4.106142e-02'], ['mass', '3.846218e-05'],
+                                             ['t', '3.0000e-11'], ['energy', '4.090486e-02'],
+                                             ['mass', '3.459775e-05'], ['t', '4.0000e-11'],
+                                             ['energy', '4.080909e-02'], ['mass', '3.188167e-05'],
+                                             ['t', '5.0000e-11'], ['energy', '4.074341e-02'],
+                                             ['mass', '2.981424e-05']]},
+                'cahnhilliard_conv': {'example': 'cahnhilliard',
+                                      'argv': ['--nel', '256', '--nsteps', '5', '--conv-jacobian'],
+                                      'results': [['t', '1.0000e-11'], ['energy', '4.140118e-02'],
+                                                  ['mass', '4.508502e-05'], ['t', '2.0000e-11'],
+                                                  ['energy', '4.106142e-02'],
+                                                  ['mass', '3.846218e-05'], ['t', '3.0000e-11'],
+                                                  ['energy', '4.090486e-02'],
+                                                  ['mass', '3.459775e-05'], ['t', '4.0000e-11'],
+                                                  ['energy', '4.080909e-02'],
+                                                  ['mass', '3.188167e-05'], ['t', '5.0000e-11'],
+                                                  ['energy', '4.074341e-02'],
+                                                  ['mass', '2.981424e-05']]},
+                'distributed': {'example': 'distributed',
+                                'argv': ['--dim', '3', '-p', '2', '-N', '64', '--dtype', 'float64',
+                                         '--pc', 'mg', '--checkpoint', '{tmp}'],
+                                'results': [['dim', '3'], ['dof', '1'], ['order', '2'],
+                                            ['geometry', '0'], ['rational', '0'],
+                                            ['periodic', '0'], ['nnp', '66'], ['nel', '64'],
+                                            ['periodic', '0'], ['nnp', '66'], ['nel', '64'],
+                                            ['periodic', '0'], ['nnp', '66'], ['nel', '64'],
+                                            ['iters', '9'], ['L2', '3.4880e-07']]}}
+
+# the Poisson example at the f64 phase's 128³ (its L2 held to that phase's)
+POISSON_ARGV = ["--dim", "3", "-p", "2", "-N", "128", "--dtype", "float64"]
+
+def printed_agree(got, want, rtol=1e-8):
+    """A printed float against a reference: within ``rtol``, or one unit in
+    the last printed digit (two values far closer than the print can
+    still round to neighbouring last digits)."""
+    m = re.fullmatch(r"[-+]?\d*\.?(\d*)(?:[eE]([-+]?\d+))?", want)
+    unit = 10.0 ** (int(m.group(2) or 0) - len(m.group(1)))
+    return abs(float(got) - float(want)) <= max(rtol * abs(float(want)), unit * 1.000001)
+
+
+def compare_results(key, got, want):
+    """The port's printed results against the JAX example's: the same keys
+    in order, counts (``iters``) within one, other integers and flags
+    equal, floats by :func:`printed_agree`.  Returns the disagreements."""
+    if [k for k, _ in got] != [k for k, _ in want]:
+        return [{"keys": [k for k, _ in got], "want": [k for k, _ in want]}]
+    bad = []
+    for (k, a), (_, b) in zip(got, want):
+        if re.fullmatch(r"[-+]?\d+|True|False", b):
+            ok = abs(int(a) - int(b)) <= 1 if k == "iters" else a == b
+        else:
+            ok = printed_agree(a, b)
+        if not ok:
+            bad.append({"key": k, "port": a, "reference": b})
+    return bad
+
+
+def run_example(key, name, argv):
+    """``petiga_tpu_torch.examples.<name>.main(argv)`` on the card, its
+    kernel launches counted (the distributed example's: summed over its
+    ranks) and the inputs of its kernel calls captured; returns ``(rc,
+    printed text, seconds, the captures held against the plain versions)``."""
+    import io
+
+    mod = importlib.import_module(f"petiga_tpu_torch.examples.{name}")
+    out = io.StringIO()
+    # hand the earlier phases' cached blocks back to the card: the
+    # distributed example's ranks are other processes
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist = name == "distributed"
+    if dist:  # the ranks capture their own kernel inputs
+        rank_body, mod._rank = mod._rank, example_rank
+    try:
+        with counted(f"ex_{key}"), kernel_inputs() as seen:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = mod.main(argv)
+            seconds = sync_s(t0)
+    finally:
+        if dist:
+            mod._rank = rank_body
+    if dist:
+        PHASE_LAUNCHES[f"ex_{key}"] = {k: sum(r["launches"][k] for r in mod.RANKS)
+                                       for k in ("full", "sym")}
+        rows = [dict(row, rank=r) for r, res in enumerate(mod.RANKS)
+                for row in res["kernel_vs_plain"]]
+    else:
+        rows = captured_vs_plain(seen)
+    del seen
+    return rc, out.getvalue(), seconds, rows
+
+
+def phase_examples(l2_f64_128, tmpdir):
+    """The six example programs through their command lines on the card:
+    Poisson at 128³ in f64 (its L2 to the f64 phase's ``l2_f64_128``), the
+    others at ``EXAMPLES_REF``'s arguments against the JAX package's
+    printed results there (f64 L2, energies and extrema to 1e-8, counts
+    within one); each returns 0 and launches the full kernel."""
+    from petiga_tpu_torch.examples import printed_results
+
+    runs = [("poisson", "poisson", POISSON_ARGV)] + [
+        (key, ref["example"], [a.replace("{tmp}", f"{tmpdir}/ck_{key}") for a in ref["argv"]])
+        for key, ref in EXAMPLES_REF.items()]
+    for key, name, argv in runs:
+        rc, text, seconds, rows = run_example(key, name, argv)
+        got = printed_results(text)
+        emit({"phase": f"example:{key}", "argv": argv, "rc": rc, "seconds": seconds,
+              "launches": PHASE_LAUNCHES[f"ex_{key}"], "kernel_vs_plain": rows,
+              "output": text.splitlines()})
+        check(f"example:{key}:rc", rc == 0, value=rc)
+        check(f"example:{key}:kernel_vs_plain",
+              any(r["kernel"] == "stencil_spmv_full" for r in rows)
+              and all(r["rel_err"] <= r["tol"] for r in rows),
+              worst=max((r["rel_err"] / r["tol"] for r in rows), default=None),
+              shapes=len(rows))
+        if key == "poisson":
+            l2 = dict(got).get("L2")
+            ok = l2 is not None and printed_agree(l2, f"{l2_f64_128:.6e}")
+            check("example:poisson:l2_vs_f64_phase", ok, value=l2, f64_phase=l2_f64_128,
+                  want="its printed digits")
+        else:
+            bad = compare_results(key, got, EXAMPLES_REF[key]["results"])
+            check(f"example:{key}:vs_reference", not bad, mismatches=bad)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
@@ -2954,6 +3341,16 @@ def main():
         with counted("log_view"):
             phase_log_view(op_map)
         del op_map, b_map, U_map
+
+    # ---- the front door: native host setup, the flat API, the six examples
+    for name, fn in (("native", phase_native), ("api", phase_api)):
+        t0 = time.perf_counter()
+        fn()
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        phase_examples(l2_f64[128], tmpdir)
+    PHASE_SECONDS["examples"] = time.perf_counter() - t0
     emit({"phase": "seconds", **PHASE_SECONDS, "total": time.perf_counter() - t_start})
 
     emit({"phase": "launches", **PHASE_LAUNCHES})
@@ -2963,9 +3360,11 @@ def main():
                                    "precond", "hyper", "ns", "ch_adapt512",
                                    "ch_adapt256", "mapped128", "nurbs128", "colloc",
                                    "bratu_colloc", "separable256", "io_post", "log_view",
-                                   "dist128", "dist_f64", "dist_dryrun", "dist_nccl1")
-                          + tuple(name for name, _ in TRANSIENT)),
-                         ("sym", ("m256", "m256_refine", "elast96", "mapped128"))):
+                                   "dist128", "dist_f64", "dist_dryrun", "dist_nccl1", "api",
+                                   "ex_poisson")
+                          + tuple(name for name, _ in TRANSIENT)
+                          + tuple(f"ex_{key}" for key in EXAMPLES_REF)),
+                         ("sym", ("m256", "m256_refine", "elast96", "mapped128", "api"))):
         for ph in phases:
             check(f"launches:{kind}:{ph}", PHASE_LAUNCHES[ph][kind] > 0,
                   value=PHASE_LAUNCHES[ph][kind])

@@ -170,11 +170,12 @@ def bind_cli(argv=None, defaults: Optional[Options] = None, extra=None) -> tuple
     return opts, ns
 
 
-def print_info(space, file=sys.stdout, pgrid=None):
+def print_info(space, file=None, pgrid=None):
     """Human-readable summary (IGAPrint, petiga.c:177-249): sizes,
     degrees, continuity, periodicity, and per-device balance when a
-    partition is given."""
-    w = file.write
+    partition is given.  ``file=None`` is ``sys.stdout`` at the call (the
+    reference binds the stream of its import)."""
+    w = (sys.stdout if file is None else file).write
     w(f"IGA: dim={space.dim}  dof={space.dof}  "
       f"order={space.order}  geometry={space.nsd if space.has_geometry else 0}  "
       f"rational={1 if space.is_rational else 0}\n")

@@ -51,7 +51,7 @@ def bspline_ders(
 
     if B >= 4096:
         # large tabulations go through the native C++ kernel (same
-        # algorithm; see petiga_tpu/native/core.cpp)
+        # algorithm; see csrc/host/native_core.cpp)
         from .. import native
 
         if native.available():

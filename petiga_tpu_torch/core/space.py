@@ -203,7 +203,14 @@ class Space:
     def mapping(self) -> np.ndarray:
         """Element closure map: (nel, nen) flat control-point indices,
         local basis ordering axis-0 fastest, matching the tensor-product
-        tabulation."""
+        tabulation.  Large meshes use the native C++ builder
+        (:mod:`petiga_tpu_torch.native`), as the reference's do."""
+        if self.nel >= 4096:
+            from .. import native
+
+            if native.available():
+                return native.build_mapping(self.dim, self.elem_shape, self.nen_shape,
+                                            self.node_shape, [t.offset for t in self.tabs])
         return self.element_nodes(np.arange(self.nel)).astype(np.int32)
 
     def node_multi_index(self) -> tuple[np.ndarray, ...]:

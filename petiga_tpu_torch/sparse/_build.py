@@ -4,7 +4,9 @@
 library with a plain C interface for ``sm_90a`` (Hopper), and ctypes
 loads it.  The library goes to ``build/petiga_tpu_torch/`` at the root
 of the checkout, named by a hash of the sources and flags: an unchanged
-source loads at once, an edited one rebuilds.  A missing ``nvcc`` or a
+source loads at once, an edited one rebuilds.  :func:`compile_library`
+is that build step for any compiler; the host setup library
+(:mod:`petiga_tpu_torch.native`) is built through it too.  A missing ``nvcc`` or a
 failed build raises with the compiler's output — nothing runs without
 the kernels.
 """
@@ -49,33 +51,49 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in _sources():
+def library_file(stem: str, flags, sources, build_dir: Path = BUILD_DIR) -> Path:
+    """``lib<stem>_<hash>.so`` in ``build_dir``, the hash taken over the
+    flags and the sources' names and bytes."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for f in sources:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    return BUILD_DIR / f"libpetiga_tpu_torch_{h.hexdigest()[:16]}.so"
+    return build_dir / f"lib{stem}_{h.hexdigest()[:16]}.so"
+
+
+def compile_library(compiler: str, flags, sources, stem: str,
+                    build_dir: Path = BUILD_DIR) -> Path:
+    """Compile ``sources`` into one shared library unless the library for
+    these sources and flags exists; returns its path.  A failed build
+    raises with the compiler's output; ``<library>.log`` keeps the output
+    of one that succeeded."""
+    out = library_file(stem, flags, sources, build_dir)
+    if out.exists():
+        return out
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [compiler, *flags, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"{Path(compiler).name} failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def library_path() -> Path:
+    return library_file("petiga_tpu_torch", NVCC_FLAGS, _sources())
 
 
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists;
     returns its path.  ``<library>.log`` keeps ptxas's register and
     shared-memory report."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+    return compile_library(_nvcc(), NVCC_FLAGS, _sources(), "petiga_tpu_torch")
 
 
 def load() -> ctypes.CDLL:

@@ -47,6 +47,7 @@ from .stencil import Stencil
 __all__ = [
     "LAUNCHES",
     "StencilOperator",
+    "stencil_matvec",
     "stencil_spmv_full",
     "stencil_spmv_sym",
 ]
@@ -218,8 +219,11 @@ class StencilOperator:
     port of ``PallasStencilOperator``; ``device=None`` is the CUDA
     device).
 
-    Build with :meth:`from_planes` / :meth:`from_planes_symmetric` (the
-    zero-copy path of plane assembly) or pack node-grid data with
+    Build with :meth:`from_matrix` / :meth:`from_symmetric` (pack a
+    :class:`~petiga_tpu_torch.sparse.stencil.StencilMatrix` or
+    :class:`~petiga_tpu_torch.sparse.stencil.SymmetricStencilMatrix` on the
+    device of its data), :meth:`from_planes` / :meth:`from_planes_symmetric`
+    (the zero-copy path of plane assembly), or pack node-grid data with
     :meth:`pack_planes`.  ``kind`` is ``"full"`` or ``"sym"``.
 
     ``ext_pads=((lo, hi), ...)`` per spatial axis replaces the derived
@@ -260,6 +264,33 @@ class StencilOperator:
         self._any_per = any(st.periodic)
         self._framed = any(pad != (0, 0) for pad in self.pads)
         self.DT = None
+        self.A = None  # the source matrix of from_matrix / from_symmetric
+
+    @classmethod
+    def from_matrix(cls, A, keep_source: bool = True) -> "StencilOperator":
+        """Pack a full-storage ``StencilMatrix`` into slot-major planes
+        (kind ``"full"``) on the device of ``A.data`` — the port of
+        ``PallasStencilOperator(A)``.  ``keep_source=False`` leaves ``A``
+        out of the operator (``data`` is then None), so that dropping
+        ``A`` frees its slot data."""
+        return cls._from_slot_data(A, "full", keep_source)
+
+    @classmethod
+    def from_symmetric(cls, S, keep_source: bool = True) -> "StencilOperator":
+        """Pack a ``SymmetricStencilMatrix`` for the symmetric kernel
+        (kind ``"sym"``): only its ``Ku = (K+1)/2`` upper planes are stored
+        and streamed.  Open axes only (raises on a periodic one), any
+        dof.  ``keep_source`` as in :meth:`from_matrix`."""
+        return cls._from_slot_data(S, "sym", keep_source)
+
+    @classmethod
+    def _from_slot_data(cls, M, kind, keep_source):
+        s = M.stencil
+        op = cls(s, dtype=M.data.dtype, device=M.data.device, kind=kind)
+        op._set_planes(op.pack_planes(M.data.reshape(tuple(s.node_shape[::-1]) + (op.nplanes,))))
+        if keep_source:
+            op.A = M
+        return op
 
     @classmethod
     def from_planes(cls, stencil: Stencil, DT: torch.Tensor) -> "StencilOperator":
@@ -375,6 +406,19 @@ class StencilOperator:
     def matvec(self, x):
         return self.matvec_packed(self.DT, x)
 
+    def __matmul__(self, x):
+        return self.matvec(x)
+
+    @property
+    def stencil(self) -> Stencil:
+        return self.st
+
+    @property
+    def data(self):
+        """The source matrix's slot data, or None for an operator built
+        from planes or packed with ``keep_source=False``."""
+        return None if self.A is None else self.A.data
+
     def matvec_packed(self, DT, x):
         """matvec on node-ordered vectors with the planes passed
         explicitly."""
@@ -442,3 +486,10 @@ class StencilOperator:
             f"next={self.next}, G={self.G}, dof={self.dof}, "
             f"dtype={self.dtype}, device={self.device})"
         )
+
+
+def stencil_matvec(A, x):
+    """One product ``A @ x`` through the stencil kernel, packing ``A`` on
+    every call (the port of ``pallas_matvec``): prefer a
+    :class:`StencilOperator` kept across a solve."""
+    return A.fast_operator().matvec(x)

@@ -23,6 +23,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..utils import profiling
 
 __all__ = ["Stencil", "StencilMatrix", "SymmetricStencilMatrix", "stencil_apply"]
@@ -211,6 +212,14 @@ class StencilMatrix:
         self.stencil = stencil
         self.data = data
 
+    @staticmethod
+    def zeros(stencil: Stencil, dtype=torch.float32, device=None) -> "StencilMatrix":
+        """An all-zero operator on ``device`` (None: the CUDA device)."""
+        s = stencil
+        return StencilMatrix(
+            s, torch.zeros((s.nnodes, s.K, s.dof, s.dof), dtype=dtype,
+                           device=resolve_device(device)))
+
     # ---------------------------------------------------------------- apply
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
@@ -236,11 +245,7 @@ class StencilMatrix:
         Krylov solvers and preconditioners unchanged."""
         from .spmv import StencilOperator
 
-        s = self.stencil
-        op = StencilOperator(s, dtype=self.data.dtype, device=self.data.device)
-        grid = self.data.reshape(tuple(s.node_shape[::-1]) + (op.nplanes,))
-        op._set_planes(op.pack_planes(grid))
-        return op
+        return StencilOperator.from_matrix(self, keep_source=False)
 
     # ------------------------------------------------------------ structure
 
@@ -420,11 +425,6 @@ class SymmetricStencilMatrix:
         first."""
         from .spmv import StencilOperator
 
-        s = self.stencil
-        if any(s.periodic):
+        if any(self.stencil.periodic):
             return self.to_full().fast_operator()
-        op = StencilOperator(s, dtype=self.data.dtype, device=self.data.device,
-                             kind="sym")
-        grid = self.data.reshape(tuple(s.node_shape[::-1]) + (op.nplanes,))
-        op._set_planes(op.pack_planes(grid))
-        return op
+        return StencilOperator.from_symmetric(self, keep_source=False)

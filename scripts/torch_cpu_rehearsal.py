@@ -12,6 +12,7 @@ here is a device time.
     python3 scripts/torch_cpu_rehearsal.py mg-band      # MG/BJ counts, 8³-32³ f32
     python3 scripts/torch_cpu_rehearsal.py ch-adapt transient
     python3 scripts/torch_cpu_rehearsal.py surface      # mapped, colloc, io_post, ...
+    python3 scripts/torch_cpu_rehearsal.py front        # native, api, examples
 
 Prints each phase's JSON lines and, last, the failed checks; exits 1 if
 any failed.
@@ -123,11 +124,75 @@ def surface(chip_smoke):
         cs.phase_log_view(op_map)
 
 
+# the JAX package's examples at CPU sizes (scripts/torch_examples_reference.py's
+# parse of their output, run at these arguments)
+FRONT_SMALL_REF = {'bratu': {'argv': ['--dim', '2', '-N', '8'],
+               'example': 'bratu',
+               'results': [['dim', '2'], ['dof', '1'], ['order', '2'], ['geometry', '0'],
+                           ['rational', '0'], ['periodic', '0'], ['nnp', '10'], ['nel', '8'],
+                           ['periodic', '0'], ['nnp', '10'], ['nel', '8'], ['iters', '7'],
+                           ['converged', 'True'], ['max(u)', '1.322329']]},
+     'cahnhilliard': {'argv': ['--nel', '8', '--nsteps', '2'],
+                      'example': 'cahnhilliard',
+                      'results': [['t', '1.0000e-11'], ['energy', '4.037061e-02'],
+                                  ['mass', '6.432994e-05'], ['t', '2.0000e-11'],
+                                  ['energy', '4.037061e-02'], ['mass', '6.433029e-05']]},
+     'cahnhilliard_conv': {'argv': ['--nel', '8', '--nsteps', '2', '--conv-jacobian'],
+                           'example': 'cahnhilliard',
+                           'results': [['t', '1.0000e-11'], ['energy', '4.037061e-02'],
+                                       ['mass', '6.432994e-05'], ['t', '2.0000e-11'],
+                                       ['energy', '4.037061e-02'], ['mass', '6.433029e-05']]},
+     'distributed': {'argv': ['--dim', '3', '-p', '2', '-N', '8', '--dtype', 'float64', '--pc',
+                              'mg', '--checkpoint', '{tmp}'],
+                     'example': 'distributed',
+                     'results': [['dim', '3'], ['dof', '1'], ['order', '2'], ['geometry', '0'],
+                                 ['rational', '0'], ['periodic', '0'], ['nnp', '10'], ['nel', '8'],
+                                 ['periodic', '0'], ['nnp', '10'], ['nel', '8'], ['periodic', '0'],
+                                 ['nnp', '10'], ['nel', '8'], ['iters', '10'],
+                                 ['L2', '1.8868e-04']]},
+     'elasticity': {'argv': ['--dim', '3', '-N', '4', '--dtype', 'float64'],
+                    'example': 'elasticity',
+                    'results': [['dim', '3'], ['dof', '3'], ['order', '2'], ['geometry', '0'],
+                                ['rational', '0'], ['periodic', '0'], ['nnp', '6'], ['nel', '4'],
+                                ['periodic', '0'], ['nnp', '6'], ['nel', '4'], ['periodic', '0'],
+                                ['nnp', '6'], ['nel', '4'], ['iters', '14'],
+                                ['L2', '1.801985e-03']]},
+     'hyperelasticity': {'argv': ['--dim', '3', '-N', '3', '--dtype', 'float64'],
+                         'example': 'hyperelasticity',
+                         'results': [['dim', '3'], ['dof', '3'], ['order', '2'], ['geometry', '0'],
+                                     ['rational', '0'], ['periodic', '0'], ['nnp', '5'],
+                                     ['nel', '3'], ['periodic', '0'], ['nnp', '5'], ['nel', '3'],
+                                     ['periodic', '0'], ['nnp', '5'], ['nel', '3'], ['iters', '4'],
+                                     ['max|u|', '0.1000']]}}
+
+
+def front(chip_smoke):
+    """The front-door phases: native setup at 16³ (the native route starts
+    at 4096 elements), the flat API's quickstart at 8³, and the examples at
+    CPU sizes (Poisson at 8³ f64) against the JAX package's there."""
+    import copy
+    import tempfile
+
+    from petiga_tpu_torch.models import poisson
+
+    cs = chip_smoke
+    cs.phase_native(nel=16, nel_setup=16, npts=1 << 13)
+    cs.phase_api(nel=8)
+    cs.EXAMPLES_REF = copy.deepcopy(FRONT_SMALL_REF)
+    # spawned ranks do not see this process's CPU default device
+    cs.EXAMPLES_REF["distributed"]["argv"] += ["--device", "cpu"]
+    cs.POISSON_ARGV = ["--dim", "3", "-p", "2", "-N", "8", "--dtype", "float64"]
+    sp = poisson.make_space(3, p=2, nel=8, dtype=torch.float64)
+    U, _ = poisson.solve_poisson(sp, rtol=1e-12, symmetric=True)
+    with tempfile.TemporaryDirectory() as d:
+        cs.phase_examples(poisson.l2_error(sp, U), d)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="+",
                     choices=["elast", "f64", "precond", "hyper", "ns", "mg-band", "ch-adapt",
-                             "transient", "surface"])
+                             "transient", "surface", "front"])
     args = ap.parse_args(argv)
     _on_the_cpu()
     import chip_smoke as cs
@@ -153,6 +218,8 @@ def main(argv=None):
             transient(cs)
         elif ph == "surface":
             surface(cs)
+        elif ph == "front":
+            front(cs)
         else:
             mg_band(cs)
         cs.emit({"rehearsal": ph, "host_s": time.perf_counter() - t0})

@@ -88,6 +88,13 @@ def test_port_import_leaves_jax_out():
         "import sys\n"
         "import petiga_tpu_torch, petiga_tpu_torch.interop\n"
         "import petiga_tpu_torch.models.poisson, petiga_tpu_torch.sparse._build\n"
+        "import petiga_tpu_torch.native\n"
+        "from petiga_tpu_torch import *\n"
+        "for name in petiga_tpu_torch.__all__: getattr(petiga_tpu_torch, name)\n"
+        "import petiga_tpu_torch.examples.poisson, petiga_tpu_torch.examples.bratu\n"
+        "import petiga_tpu_torch.examples.cahnhilliard, petiga_tpu_torch.examples.elasticity\n"
+        "import petiga_tpu_torch.examples.hyperelasticity\n"
+        "import petiga_tpu_torch.examples.distributed\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
