@@ -13,6 +13,7 @@ in a few seconds.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -22,6 +23,11 @@ from petiga_tpu_torch.core.axis import Axis
 from petiga_tpu_torch.core.space import Space
 from petiga_tpu_torch.models.poisson import make_space, poisson_system
 from petiga_tpu_torch.parallel.dist import DistAlphaStepper, DistSpace, DistThetaStepper
+
+# The ranks the test files launch inherit this: c10d's warnings would
+# otherwise land in the middle of pytest's progress lines.  A rank's error
+# still reaches the test, as the traceback the launcher raises.
+os.environ.setdefault("TORCH_CPP_LOG_LEVEL", "ERROR")
 
 F64 = torch.float64
 CPU = "cpu"
@@ -262,6 +268,12 @@ def hang():
 
     while True:
         time.sleep(1.0)
+
+
+def fail():
+    """A rank body that raises on rank 1 (the launcher's failure report)."""
+    if dist.get_rank() == 1:
+        raise ValueError("rank 1 fails on purpose")
 
 
 # ------------------------------------------------------------- precond cases

@@ -3,6 +3,7 @@ and compare what they print (torch-free on the JAX side)."""
 
 import importlib
 import importlib.util
+import os
 import pathlib
 import re
 import sys
@@ -11,6 +12,10 @@ import numpy as np
 import pytest
 
 from petiga_tpu_torch.examples import printed_results
+
+# The distributed example's ranks inherit this: c10d's warnings would
+# otherwise land in the middle of pytest's progress lines.
+os.environ.setdefault("TORCH_CPP_LOG_LEVEL", "ERROR")
 
 EXAMPLES = pathlib.Path(__file__).resolve().parents[1] / "examples"
 

@@ -18,7 +18,7 @@ is one test here:
 * a nonlinear boundary residual and its Jacobian against the port's
   serial assembly;
 * the dry run, a single rank without a process group, the device rule
-  and the launcher's job timeout.
+  and the launcher's job timeout and failure report.
 
 Tolerances: 1e-12 of the largest entry for assembled data and products
 (the same sums in another order), 1e-10 relative for solutions, Krylov
@@ -410,3 +410,10 @@ def test_device_none_needs_cuda():
 def test_hung_rank_fails_by_timeout():
     with pytest.raises(RuntimeError, match="job timeout"):
         launch(cases.hang, 2, backend="gloo", init_timeout=30.0, timeout=4.0)
+
+
+def test_failing_rank_reaches_the_report():
+    """The launcher's failure report: a rank's own error reaches the
+    caller, traceback and all."""
+    with pytest.raises(RuntimeError, match=r"(?s)rank 1 failed:.*ValueError: rank 1 fails"):
+        launch(cases.fail, 2, backend="gloo", init_timeout=30.0, timeout=60.0)
