@@ -3,14 +3,23 @@ the replacement of PetIGA's element loops (IGAComputeSystem/
 Vector/Matrix, IGAComputeScalar/ErrorNorm) and of its per-element
 Dirichlet machinery (FixSystem).
 
-User forms are *pure functions of one quadrature point*, lifted over the
-elements of a chunk with ``torch.func.vmap``; the quadrature points are
-summed by a Python loop in their natural order (or contracted by the
-form itself when it is ``qbatched``).  Element contributions go into the
-stencil operator by shifted in-place slice adds on regular spaces
+User forms are *pure functions of one quadrature point*.  A residual
+form (``assemble_function``, ``assemble_jacobian``'s AD, the
+matrix-free products) is evaluated at every point of an element batch
+in one call, a ``torch.func.vmap`` over the points inside one over the
+elements, then weighted and summed over the points in their natural
+order; each such call is one ``IGA_ElementBatch`` log event.  System,
+vector and scalar forms are lifted over the elements with one ``vmap``
+per point, summed by a Python loop in the same order (or contracted by
+the form itself when it is ``qbatched``).  Element contributions go into
+the stencil operator by shifted in-place slice adds on regular spaces
 (:mod:`.fastpath`) or by ``index_add_`` otherwise.  The element loop
-runs over chunks of whole element ids so memory stays bounded; the last
-chunk is simply shorter (no padded ids, no validity masks).
+runs over chunks of whole element ids so memory stays bounded: a
+residual's or Jacobian's default chunk holds as many elements as keep
+its largest intermediate within ``_BATCH_BYTES``, and where one slab of
+elements over all points would pass that, the points are taken in
+consecutive groups.  The last chunk is simply shorter (no padded ids,
+no validity masks).
 
 The Dirichlet post-fix is the reference's global elimination on an
 assembled operator: every fixed row and column zeroed, the diagonal set
@@ -28,7 +37,8 @@ sum-factorized assembly of the separable reaction–diffusion system.
 The routines register PetIGA's log events (``IGA_FormSystem``,
 ``IGA_FormVector``, ``IGA_FormFunction``, ``IGA_FormJacobian``,
 ``IGA_FormScalar``) with :mod:`petiga_tpu_torch.utils.profiling` where the
-reference's do.
+reference's do, and ``IGA_ElementBatch`` per batched evaluation of a
+residual form (host-side counts: it never waits for the card).
 """
 
 from __future__ import annotations
@@ -63,6 +73,13 @@ __all__ = [
     "dirichlet_post_fix_homogeneous",
 ]
 
+# The bytes of a residual batch's largest intermediate, directions ×
+# elements × quadrature points × nen·dof × itemsize, that a default chunk
+# and a group of quadrature points keep within (the pointwise counterpart
+# of the conv engine's ``convform._FINE_CHUNK_BYTES``).  Directions are
+# nen·dof for an AD Jacobian and 1 for a residual or a matrix-free product.
+_BATCH_BYTES = 2**29
+
 
 # ----------------------------------------------------------------- utilities
 
@@ -94,12 +111,16 @@ def _points_of(pb: PointBlock) -> Point:
     )
 
 
+def _leaf_dims(tree):
+    """``vmap`` in_dims of a pytree: 0 for its tensor leaves, None for
+    ``None`` leaves (absent Point fields, a missing ``Ue``)."""
+    return tree_map(lambda a: None if a is None else 0, tree)
+
+
 def _vmap(fn, *args):
     """``torch.func.vmap`` of ``fn`` over the leading axis of every
-    tensor leaf of ``args``; ``None`` leaves (absent Point fields, a
-    missing ``Ue``) pass through."""
-    in_dims = tuple(tree_map(lambda a: None if a is None else 0, a) for a in args)
-    return torch.func.vmap(fn, in_dims=in_dims)(*args)
+    tensor leaf of ``args``; ``None`` leaves pass through."""
+    return torch.func.vmap(fn, in_dims=tuple(_leaf_dims(a) for a in args))(*args)
 
 
 def _scan_points(pb: PointBlock, body: Callable, init):
@@ -111,6 +132,22 @@ def _scan_points(pb: PointBlock, body: Callable, init):
         pt = tree_map(lambda a: None if a is None else a[:, q], pts)
         acc = body(acc, pt, pb.weight[:, q])
     return acc
+
+
+def _batch_elements(space, directions: int) -> int:
+    """Elements in a default residual or Jacobian chunk: as many as keep
+    ``directions × elements × Q × nen·dof × itemsize`` within
+    ``_BATCH_BYTES`` (at least one)."""
+    Q = math.prod(t.value.shape[1] for t in space.tabs)
+    per_element = directions * Q * space.nen * space.dof * space.dtype.itemsize
+    return max(1, _BATCH_BYTES // per_element)
+
+
+def _point_groups(Q: int, per_point: int) -> list:
+    """Consecutive ranges of the Q quadrature points, as few as keep
+    ``per_point`` bytes a point within ``_BATCH_BYTES``."""
+    g = max(1, min(Q, _BATCH_BYTES // max(per_point, 1)))
+    return [(q0, min(q0 + g, Q)) for q0 in range(0, Q, g)]
 
 
 def _chunks(space, chunk: Optional[int]) -> list:
@@ -611,24 +648,40 @@ def _call_function(function, pt, ue, aux_e, ctx):
     return function(pt, ue, aux_e, ctx)
 
 
-def _element_residual(space, function, ctx, pb, Ue, m, v, uorig, aux_e=None):
+def _element_residual(space, function, ctx, pb, Ue, m, v, uorig, aux_e=None,
+                      directions=1):
     """Residual (B, nen·dof) of one element batch with Dirichlet
     semantics (FixValues + FixFunction): fixed coefficients are
     overwritten with their boundary values before evaluation; fixed
     residual rows become ``uorig - v``.  Written without in-place
-    updates, so it runs under ``torch.func`` transforms."""
+    updates, so it runs under ``torch.func`` transforms.
+
+    The form is evaluated at all of the batch's quadrature points in one
+    call (a ``vmap`` over the points inside one over the elements), then
+    weighted and summed over the points in order, q = 0 … Q−1: the sum
+    of one ``vmap`` per point, bit for bit.  ``directions`` (the tangents
+    an enclosing ``vmap`` of ``jvp`` carries) sizes the groups of points
+    taken in one call within ``_BATCH_BYTES``."""
     dt = space.dtype
     nen, dof = space.nen, space.dof
-    B = Ue.shape[0]
+    n = nen * dof
+    B, Q = pb.weight.shape
     Uf = torch.where(m.reshape(B, nen, dof) > 0, v.reshape(B, nen, dof), Ue)
 
     def one(pt, ue, ax):
         return _normalize_F(_call_function(function, pt, ue, ax, ctx), nen, dof, dt)
 
-    def body(Ra, pt, w):
-        return Ra + w[:, None] * _vmap(one, pt, Uf, aux_e)
+    def element(pt, ue, ax):  # one element at its (group of) points
+        return torch.func.vmap(one, in_dims=(_leaf_dims(pt), None, None))(pt, ue, ax)
 
-    Re = _scan_points(pb, body, torch.zeros((B, nen * dof), dtype=dt, device=Ue.device))
+    pts = _points_of(pb)
+    Re = torch.zeros((B, n), dtype=dt, device=Ue.device)
+    for q0, q1 in _point_groups(Q, directions * B * n * dt.itemsize):
+        profiling.count("IGA_ElementBatch")
+        pt = tree_map(lambda a: None if a is None else a[:, q0:q1], pts)
+        wR = pb.weight[:, q0:q1, None] * _vmap(element, pt, Uf, aux_e)
+        for q in range(q1 - q0):
+            Re = Re + wR[:, q]
     return Re * (1.0 - m) + m * (uorig - v)
 
 
@@ -638,17 +691,21 @@ def _gather_aux(space, aux, emap):
     return {k: v.reshape(space.nnodes, -1)[emap] for k, v in aux.items()}
 
 
-def _scatter_blocks(space, chunk, blocks, out):
+def _scatter_blocks(space, chunk, blocks, out, directions=1):
     """Accumulate per-chunk element data into ``out``, in place.
 
     ``blocks(ids) -> (E, emap)`` gives element vectors ``(B, nen, dof)``
     (``out`` (nnodes, dof)) or element matrices ``(B, nen, nen, dof,
-    dof)`` (``out`` (nnodes·K, dof, dof)).  Regular spaces take the
-    shifted slice adds of :mod:`.fastpath` over whole slabs, in a fixed
-    order (deterministic on the card); others ``index_add_``."""
+    dof)`` (``out`` (nnodes·K, dof, dof)).  ``chunk=None`` sizes the
+    chunks by bytes (:func:`_batch_elements`, ``directions`` tangents a
+    batch).  Regular spaces take the shifted slice adds of
+    :mod:`.fastpath` over whole slabs, in a fixed order (deterministic on
+    the card); others ``index_add_``."""
     matrix = out.dim() == 3
+    if chunk is None:
+        chunk = min(space.nel, _batch_elements(space, directions))
     if fastpath.is_regular(space):
-        chunk_sz = fastpath.slab_chunk(space, min(space.nel, 8192) if chunk is None else chunk)
+        chunk_sz = fastpath.slab_chunk(space, chunk)
         kz = chunk_sz // (space.nel // space.elem_shape[-1])
         N_rev = tuple(space.node_shape[::-1])
         grid = out.view(N_rev + ((stencil_of(space).K,) if matrix else ()) + out.shape[1:])
@@ -663,11 +720,12 @@ def _scatter_blocks(space, chunk, blocks, out):
     return out
 
 
-def _element_batch(space, function, ctx, ids, order, face, aux):
+def _element_batch(space, function, ctx, ids, order, face, aux, directions=1):
     """An element batch's tables and its residual as a function of the
     element coefficients: ``(res, emap, (pb, m, v, aux_e))`` with
-    ``res(Ue (B, nen, dof)) -> (B, nen·dof)``.  Boundary forms (``face``)
-    only add to free rows, so their fixed rows are zero."""
+    ``res(Ue (B, nen, dof)) -> (B, nen·dof)``, evaluated under
+    ``directions`` tangents.  Boundary forms (``face``) only add to free
+    rows, so their fixed rows are zero."""
     pb = tabulate_elements(space, ids, order=order, face=face)
     emap = space.device_emap(ids)
     m, v = _fix_arrays(space, emap)
@@ -675,7 +733,8 @@ def _element_batch(space, function, ctx, ids, order, face, aux):
 
     def res(ue):
         uorig = v if face is not None else ue.reshape(m.shape)
-        Re = _element_residual(space, function, ctx, pb, ue, m, v, uorig, aux_e)
+        Re = _element_residual(space, function, ctx, pb, ue, m, v, uorig, aux_e,
+                               directions)
         return Re * (1.0 - m) if face is not None else Re
 
     return res, emap, (pb, m, v, aux_e)
@@ -743,7 +802,7 @@ def _jacobian_blocks(space, function, U, ctx, jacobian, aux, order, face=None):
 
     def blocks(ids):
         res, emap, (pb, m, v, aux_e) = _element_batch(space, function, ctx, ids, order, face,
-                                                      aux)
+                                                      aux, directions=n)
         B = ids.shape[0]
         Ue = U[emap]
         if jacobian is not None:
@@ -785,7 +844,7 @@ def assemble_jacobian(space, function, U, ctx=None, *, jacobian=None, aux=None,
     U = U.reshape(space.nnodes, dof)
     A_data = torch.zeros((st.nnodes * st.K, dof, dof), dtype=space.dtype, device=space.device)
     _scatter_blocks(space, chunk, _jacobian_blocks(space, function, U, ctx, jacobian, aux, order),
-                    A_data)
+                    A_data, directions=space.nen * dof)
     if boundary is not None:
         for d, s in _faces_to_visit(space):
             fids = torch.as_tensor(_face_elements(space, d, s), device=space.device)

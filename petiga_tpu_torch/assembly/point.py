@@ -3,11 +3,13 @@
 
 A :class:`Point` is a per-point slice of a
 :class:`~petiga_tpu_torch.assembly.tabulation.PointBlock`: forms are
-written for ONE point and lifted over elements with ``torch.func.vmap``
-(the quadrature points are looped, or carried as a leading axis for
-``qbatched`` forms).  Field-evaluation helpers contract the tabulated
-shape functions with the element coefficient closure ``Ue`` of shape
-``(nen, dof)``.
+written for ONE point and lifted with ``torch.func.vmap``: a residual
+form over an element batch's points and elements at once (a ``vmap``
+over the points inside one over the elements), a system, vector or
+scalar form over the elements one point at a time (or with the points
+carried as a leading axis for ``qbatched`` forms).  Field-evaluation
+helpers contract the tabulated shape functions with the element
+coefficient closure ``Ue`` of shape ``(nen, dof)``.
 """
 
 from __future__ import annotations

@@ -670,11 +670,11 @@ class DistSpace:
 
     # ----------------------------------------------- residual / Jacobian
 
-    def _batch(self, ids, valid, face, form, ctx, order, Uext, aux_ext):
+    def _batch(self, ids, valid, face, form, ctx, order, Uext, aux_ext, directions=1):
         """One element batch: ``(res, Ue, rows)`` with ``res(Ue (B, nen,
         dof)) -> (B, nen·dof)`` the element residual with fix-value
-        semantics, masked by ``valid``; boundary forms (``face``) only
-        add to free rows."""
+        semantics, evaluated under ``directions`` tangents and masked by
+        ``valid``; boundary forms (``face``) only add to free rows."""
         sp = self.space
         ids_t, valid_t = self._ids(ids, valid)
         pb = tabulate_elements(sp, ids_t, order=order, face=face)
@@ -686,7 +686,7 @@ class DistSpace:
 
         def res(ue):
             uorig = v if face is not None else ue.reshape(m.shape)
-            Re = _element_residual(sp, form, ctx, pb, ue, m, v, uorig, aux_e)
+            Re = _element_residual(sp, form, ctx, pb, ue, m, v, uorig, aux_e, directions)
             if face is not None:
                 Re = Re * (1.0 - m)
             return Re * vm
@@ -736,7 +736,8 @@ class DistSpace:
         slot = self._slot_table()
         basis = torch.eye(n, dtype=sp.dtype, device=self.device).reshape(n, 1, nen, dof)
         for ids, valid, face, form in self._batches(function, boundary):
-            res, Ue, rows = self._batch(ids, valid, face, form, ctx, order, Uext, aux_ext)
+            res, Ue, rows = self._batch(ids, valid, face, form, ctx, order, Uext, aux_ext,
+                                        directions=n)
             B = Ue.shape[0]
 
             def column(t):

@@ -3,7 +3,11 @@ the same seeded inputs: the rest of the Krylov solvers (BiCGStab, GMRES,
 block-Jacobi), ``assemble_function``/``assemble_jacobian`` (AD and
 hand-written, with ``aux`` closures and boundary forms),
 ``JacobianFreeOperator``, ``newton`` with every operator and linear
-solver, and the Bratu model by both routes.
+solver, and the Bratu model by both routes.  The batched evaluation of
+a residual form at all quadrature points of an element batch is held
+bit for bit to one ``vmap`` per point summed in order, under the
+default byte budget, a budget small enough to split the batches and
+their points, and a caller's ``chunk=``.
 
 Tolerances: residuals and Jacobians 1e-12 relative (the same element sums
 in another order); solves' U 1e-10 absolute; Krylov and Newton iteration
@@ -26,7 +30,11 @@ from petiga_tpu_torch.models import bratu as tbratu
 from petiga_tpu_torch.solve import krylov as tkrylov
 from petiga_tpu_torch.solve import newton as tnewton
 from petiga_tpu_torch.sparse.matfree import JacobianFreeOperator
+from petiga_tpu_torch.models import cahnhilliard as tch
+from petiga_tpu_torch.solve.ts import AlphaStepper
 from petiga_tpu_torch.sparse.stencil import StencilMatrix
+from petiga_tpu_torch.utils import profiling
+from torch.utils._pytree import tree_map
 
 F64 = jnp.float64
 
@@ -162,6 +170,104 @@ def test_residual_holds_fix_rows():
     assert torch.allclose(rows[:, dslot], mult[mask], rtol=0, atol=1e-14)
     rows[:, dslot] = 0
     assert float(rows.abs().max()) == 0.0
+
+
+def _per_point_residual(space, function, ctx, pb, Ue, m, v, uorig, aux_e=None,
+                        directions=1):
+    """The element residual as one ``vmap`` over the elements per
+    quadrature point, weighted and summed in order q = 0 … Q−1."""
+    nen, dof = space.nen, space.dof
+    B = Ue.shape[0]
+    Uf = torch.where(m.reshape(B, nen, dof) > 0, v.reshape(B, nen, dof), Ue)
+
+    def one(pt, ue, ax):
+        return tasm._normalize_F(tasm._call_function(function, pt, ue, ax, ctx), nen, dof,
+                                 space.dtype)
+
+    pts = tasm._points_of(pb)
+    Re = torch.zeros((B, nen * dof), dtype=space.dtype)
+    for q in range(pb.weight.shape[1]):
+        pt = tree_map(lambda a: None if a is None else a[:, q], pts)
+        Re = Re + pb.weight[:, q][:, None] * tasm._vmap(one, pt, Uf, aux_e)
+    return Re * (1.0 - m) + m * (uorig - v)
+
+
+def _ch_alpha_case():
+    """The α-stepper's Cahn–Hilliard stage form (periodic 2-D p=2) at
+    6² elements, with its ``U0``/``V0`` closures."""
+    sp = tch.make_space(dim=2, nel=6, device="cpu")
+    rng = np.random.default_rng(21)
+    U0 = torch.as_tensor(0.63 + 0.05 * (rng.random((sp.nnodes, 1)) - 0.5))
+    V0 = torch.as_tensor(0.01 * rng.normal(size=(sp.nnodes, 1)))
+    ctx = {"theta": 1.5, "alpha": 3000.0, "cbar": 0.63}
+    st = AlphaStepper(sp, tch.residual, rho_inf=0.5, ctx=ctx)
+    am, af, g = st.coeffs()
+    dt = 1e-6
+
+    def form(pt, Xe, aux_e, c):
+        U0e, V0e = aux_e["U0"], aux_e["V0"]
+        V1e = (Xe - U0e) / (g * dt) + (1 - 1 / g) * V0e
+        return st._call(pt, am * af / (g * dt), V0e + am * (V1e - V0e), af * dt,
+                        U0e + af * (Xe - U0e), 0.0, U0e, c)
+
+    X = U0 + torch.as_tensor(1e-3 * rng.normal(size=U0.shape))
+    return sp, form, X, ctx, {"U0": U0, "V0": V0}
+
+
+def _bratu_aux_case():
+    """The transient Bratu stage form on a 5² Dirichlet space, one face
+    held at a nonzero value."""
+    sp = tbratu.make_space(2, p=2, nel=5, dtype=torch.float64, device="cpu")
+    sp.set_boundary_value(1, 1, 0, 0.3)
+    rng = np.random.default_rng(11)
+    aux = {"U0": torch.as_tensor(rng.normal(scale=0.1, size=(sp.nnodes, 1))),
+           "V0": torch.as_tensor(rng.normal(size=(sp.nnodes, 1)))}
+
+    def form(pt, Xe, aux_e, c):
+        return tbratu.bratu_ifunction(pt, 3.0, Xe - aux_e["U0"] + aux_e["V0"], 0.0, Xe, c)
+
+    X = torch.as_tensor(rng.normal(scale=0.1, size=(sp.nnodes, 1)))
+    return sp, form, X, {"lambda": 3.0}, aux
+
+
+@pytest.mark.parametrize("case,setting,batches", [
+    # batches: IGA_ElementBatch events of (a residual, an AD Jacobian)
+    ("ch_alpha", "default", (1, 1)),
+    # 3000 B: one slab of 6 elements a batch; the residual's points in
+    # groups of 6 and 3, the Jacobian's one at a time
+    ("ch_alpha", "budget", (6 * 2, 6 * 9)),
+    ("ch_alpha", "chunk", (3, 3)),
+    ("bratu_aux", "default", (1, 1)),
+    ("bratu_aux", "budget", (5 * 2, 5 * 9)),
+    ("bratu_aux", "chunk", (3, 3)),
+])
+def test_batched_points_match_per_point_loop(monkeypatch, case, setting, batches):
+    """Residual, AD Jacobian and Jacobian-free action of the batched
+    evaluation equal a per-point loop bit for bit, in the element
+    batches the byte budget or a caller's ``chunk=`` (two slabs: the
+    parent's batches) gives; the count of batched evaluations is the
+    engagement measure."""
+    sp, form, X, ctx, aux = {"ch_alpha": _ch_alpha_case, "bratu_aux": _bratu_aux_case}[case]()
+    kw = {"aux": aux, "chunk": 2 * sp.elem_shape[0] if setting == "chunk" else None}
+    if setting == "budget":
+        monkeypatch.setattr(tasm, "_BATCH_BYTES", 3000)
+    x = torch.as_tensor(np.random.default_rng(5).normal(size=X.shape))
+
+    def run():
+        return (tasm.assemble_function(sp, form, X, ctx, **kw),
+                tasm.assemble_jacobian(sp, form, X, ctx, **kw).data,
+                JacobianFreeOperator(sp, form, X, ctx, **kw).matvec(x))
+
+    counts = []
+    for k in range(2):
+        profiling.reset()
+        (tasm.assemble_function, tasm.assemble_jacobian)[k](sp, form, X, ctx, **kw)
+        counts.append(profiling.EVENTS["IGA_ElementBatch"]["count"])
+    assert tuple(counts) == batches
+    batched = run()
+    monkeypatch.setattr(tasm, "_element_residual", _per_point_residual)
+    for got, want in zip(batched, run()):
+        assert torch.equal(got, want)
 
 
 # ------------------------------------------------------------------ Newton
