@@ -7,11 +7,18 @@ the process and returns config overrides:
 * ``lower``: the nearest precision below the configuration's.  For a
   float32 configuration, TF32: the plain reference computed in TF32
   (``reference/tf32.py``) put in the program's place, planes, load
-  vector and solve; the program's own TF32 switch reaches only its matrix
-  products, not its solver.  For a float64 configuration, float32, through
-  the program's own path (a float32 space);
+  vector and solve (on a distributed Poisson cell: each rank's block of
+  the planes and load vector, and the solve and the product on the whole
+  grid gathered on every rank, each rank keeping its block); the
+  program's own TF32 switch reaches only its matrix products, not its
+  solver.  For a float64 configuration, float32, through the program's
+  own path (a float32 space);
 * ``unchanged``: the timed path returns its state unchanged: a Poisson
-  solve returns the zero vector; an α-step returns its start state;
+  solve returns the zero vector (every rank's block of it); an α-step
+  returns its start state;
+* ``exchange``: on a distributed cell, the forward halo exchange between
+  ranks left out: each rank's product sees zeros where its neighbours'
+  nodes are (the assembly's reverse fold still runs);
 * ``early``: the solver stopped at ``factor`` (100) times the configured
   tolerance (Krylov for a linear configuration, Newton for a nonlinear
   one), through the configuration the program is run with;
@@ -21,10 +28,13 @@ the process and returns config overrides:
   (``run_conv``), every Newton correction by 0.01 at a few entries there.
 
 The program itself is never edited: these patch module attributes in the
-running process only.
+running process only, so a cell of several ranks plants them in every
+rank (``harness.run``'s ``plant``).
 """
 
 from __future__ import annotations
+
+import json
 
 import torch
 
@@ -76,7 +86,55 @@ def _tf32_reference(problem, cfg):
     return {}
 
 
+def _tf32_dist_reference(cfg):
+    """Put the reference in TF32 in the place of the distributed Poisson
+    program (``DistSpace``'s assembly, CG and product)."""
+    from petiga_tpu_torch.parallel.dist import DistSpace
+
+    from .problems.poisson_dist import block_range
+    from .reference import tf32
+    from .reference.poisson import System
+
+    dim, p, nel, q = cfg["dim"], cfg["p"], cfg["nel"], cfg["quadrature"]
+    N = nel + p
+    ops = {}
+
+    def operator(ds):
+        if ds.device not in ops:
+            ops[ds.device] = tf32.Operator(System(dim, p, nel, q, device=ds.device), False,
+                                           planes=False)
+        return ops[ds.device]
+
+    def block(ds, v):
+        """A vector of the whole grid -> this rank's block."""
+        return ds.pad_grid(v.reshape(-1, 1))
+
+    def assemble_system(self, form, ctx=None, **kw):
+        S = operator(self).S
+        real, cut = block_range(self, N)
+        data = torch.zeros(tuple(self.L[::-1]) + (S.nslots, 1, 1), dtype=torch.float32,
+                           device=self.device)
+        for s in range(S.nslots):
+            R = S.slot_block(s, real[0].start, real[0].stop)[(slice(None),) + real[1:]]
+            data[cut + (s, 0, 0)] = tf32.tf32(R.float())
+        return data, block(self, tf32.load(S, form.modes))
+
+    def cg(self, data, b, *, rtol=1e-8, maxiter=10000, **kw):
+        res = tf32.cg(operator(self), self.crop_flat(b), rtol, maxiter)
+        return block(self, res.x), res.iters, res.residual
+
+    def matvec_local(self, data, x, *args, **kw):
+        return block(self, operator(self).matvec(self.crop_flat(x)))
+
+    DistSpace.assemble_system = assemble_system
+    DistSpace.cg = cg
+    DistSpace.matvec_local = matvec_local
+    return {}
+
+
 def _lower(problem, cfg):
+    if cfg["dtype"] == "float32" and problem == "poisson_dist":
+        return _tf32_dist_reference(cfg)
     if cfg["dtype"] == "float32":
         return _tf32_reference(problem, cfg)
     if cfg["dtype"] == "float64":
@@ -104,6 +162,16 @@ def _patch_answers(problem, cfg, fn):
             return fn(U), res
 
         poisson.solve_system = solve_system
+    elif problem == "poisson_dist":
+        from petiga_tpu_torch.parallel.dist import DistSpace
+
+        cg = DistSpace.cg
+
+        def dist_cg(self, data, b, **kw):
+            x, iters, res = cg(self, data, b, **kw)
+            return fn(x), iters, res
+
+        DistSpace.cg = dist_cg
     elif problem == "cahnhilliard":
         from petiga_tpu_torch.solve import krylov, ts
 
@@ -127,7 +195,7 @@ def _patch_answers(problem, cfg, fn):
 
 
 def _unchanged(problem, cfg):
-    if problem == "poisson":
+    if problem.startswith("poisson"):
         return _patch_answers(problem, cfg, torch.zeros_like)
 
     def fn(U1, U0, correction=False):
@@ -136,7 +204,7 @@ def _unchanged(problem, cfg):
 
 
 def _altered(problem, cfg):
-    if problem == "poisson":
+    if problem.startswith("poisson"):
         return _patch_answers(problem, cfg, _bump)
 
     def fn(U1, U0, correction=False):
@@ -146,14 +214,41 @@ def _altered(problem, cfg):
     return _patch_answers(problem, cfg, fn)
 
 
+def _no_exchange(problem, cfg):
+    if problem != "poisson_dist":
+        raise ValueError(f"no exchange between ranks in problem {problem!r}")
+    from petiga_tpu_torch.parallel.dist import DistSpace
+
+    def gather(self, x_loc, launch=None):
+        if launch is not None:
+            launch()
+        dim, p = self.space.dim, self.widths
+        pad = []
+        for g in range(dim - 1, -1, -1):  # torch pads the last grid axis first
+            pad += [p[dim - 1 - g]] * 2
+        return torch.nn.functional.pad(x_loc, [0, 0] + pad)
+
+    DistSpace._gather = gather
+    return {}
+
+
 def _early(problem, cfg, factor=100.0):
     key = "krylov" if "krylov" in cfg else "newton"
     return {key: dict(cfg[key], rtol=factor * cfg[key]["rtol"])}
 
 
-MODES = {"lower": _lower, "unchanged": _unchanged, "altered": _altered, "early": _early}
+MODES = {"lower": _lower, "unchanged": _unchanged, "altered": _altered, "exchange": _no_exchange,
+         "early": _early}
+
+
+_PLANTED: dict = {}
 
 
 def plant(mode, problem, cfg, **kw):
-    """Patch the program for ``mode``; returns the config overrides."""
-    return MODES[mode](problem, cfg, **kw)
+    """Patch the program for ``mode``, once in a process however often it
+    is asked (a patch wraps what it finds); returns the config
+    overrides."""
+    key = json.dumps([mode, problem, cfg, kw], sort_keys=True)
+    if key not in _PLANTED:
+        _PLANTED[key] = MODES[mode](problem, cfg, **kw)
+    return dict(_PLANTED[key])

@@ -12,6 +12,13 @@ Everything a cell is made of is found by name from ``BENCHMARK.json``:
   ``correct``;
 * ``metrics/<metric>.py``: one reader per metric, ``read(run)``, which
   returns a number or None when the run has nothing to read.
+
+A cell of one card runs in this process (:func:`run_cell`).  A cell of
+``chips`` > 1 runs as one rank per card (:func:`run_ranks`), started by
+the program's own launcher: every rank sets up, runs the same requests in
+lock step (rank 0 decides when the window has closed and tells the
+others) and judges its part; this process prints one result line from
+rank 0's metrics and every rank's readings and peaks.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ import torch
 
 from . import trace
 
-__all__ = ["Spec", "Run", "closed_loop", "run_cell", "worst", "FORBIDDEN_MODULES"]
+__all__ = ["Spec", "Run", "closed_loop", "run_cell", "run_ranks", "run", "merge_ranks", "worst",
+           "FORBIDDEN_MODULES"]
 
 HERE = Path(__file__).resolve().parent
 # what the process that prints the result may not hold once the window has
@@ -103,11 +111,33 @@ class Run:
         self.trace = trace_summary
 
 
+def _ranks():
+    """The world size of this process's job and this process's rank in
+    it; ``(1, 0)`` outside one."""
+    import torch.distributed as tdist
+
+    if tdist.is_available() and tdist.is_initialized():
+        return tdist.get_world_size(), tdist.get_rank()
+    return 1, 0
+
+
+def _agreed(over, device):
+    """Rank 0's ``over``, the same on every rank of a job: every rank then
+    runs the same requests."""
+    import torch.distributed as tdist
+
+    flag = torch.tensor([int(over)], device=device)
+    tdist.broadcast(flag, 0)
+    return bool(flag.item())
+
+
 def closed_loop(request, seconds, rec):
     """Call ``request(i)`` for i = 0, 1, ... until ``seconds`` have passed;
     the request under way when they pass runs to its end and the window
-    ends with it.  Returns ``(t0, t1, durations)``."""
+    ends with it.  Returns ``(t0, t1, durations)``.  In a job of several
+    ranks, rank 0's clock decides after each request."""
     rec.sync()
+    lockstep = _ranks()[0] > 1
     durations = []
     with torch.profiler.record_function(trace.WINDOW_SPAN):
         t0 = t = time.perf_counter()
@@ -120,7 +150,10 @@ def closed_loop(request, seconds, rec):
             durations.append(now - t)
             t = now
             i += 1
-            if now - t0 >= seconds:
+            over = now - t0 >= seconds
+            if lockstep:
+                over = _agreed(over, rec.device)
+            if over:
                 break
     return t0, t, durations
 
@@ -137,15 +170,35 @@ def _fmt(v):
     return "nan" if v is None else repr(float(v))
 
 
-def run_cell(workload, seed, seconds, traced, *, device, t_start, root,
-             overrides=None, out=sys.stdout, err=sys.stderr):
-    """Run one cell once; print the checks to ``err`` and the result line
-    to ``out``; return the result dict."""
+def _held():
+    """The forbidden top-level modules this process holds."""
+    return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN_MODULES))
+
+
+def _refuse_held(err):
+    held = _held()
+    if held:
+        print(f"modules of the JAX package or JAX loaded in this process: {held}", file=err)
+        err.flush()
+        raise SystemExit(3)
+
+
+def run_part(workload, seed, seconds, traced, *, device, t_start, root, overrides=None,
+             err=sys.stderr):
+    """One process's share of a run: set-up, warm-up, the window and its
+    check.  Returns what :func:`finish` reads: ``metrics``, ``attempted``,
+    ``failed``, ``readings``, ``peak`` (the device's peak bytes),
+    ``device_kind`` and, traced, ``trace`` (busy and window seconds and
+    the breakdown).
+    In a job of several ranks every rank runs this, traced alike (a traced
+    run on four cards in which rank 0 alone ran the profiler hung in a
+    halo exchange); rank 0's metrics and trace are the run's, and only
+    rank 0 reads them."""
     spec = Spec(root)
     cell = spec.cell(workload)
     cfg = dict(spec.config(cell["config"]), **(overrides or {}))
     traffic = spec.traffic(cell["traffic"])
-    limits = spec.limits(workload)
+    first = _ranks()[1] == 0
     rec = trace.Recorder(traced, device)
     prob = spec.problem(cfg["problem"]).Problem(cfg, traffic, seed, device, rec)
     prob.warmup()
@@ -158,47 +211,170 @@ def run_cell(workload, seed, seconds, traced, *, device, t_start, root,
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
         with profile(activities=acts) as prof:
             t0, t1, durations = prob.window(seconds)
-        t_read = time.perf_counter()
-        summary = trace.read_trace(prof)
+        if first:
+            t_read = time.perf_counter()
+            summary = trace.read_trace(prof)
+            print(f"trace read in {time.perf_counter() - t_read:.1f} s", file=err)
         del prof
-        print(f"trace read in {time.perf_counter() - t_read:.1f} s", file=err)
     else:
         t0, t1, durations = prob.window(seconds)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     run = Run(rec, durations, t0, t1, setup_s, prob.info(), summary)
     kind = "per_layer" if traced else "end_to_end"
     metrics = {}
-    for m in spec.metrics_of(workload, kind):
+    for m in spec.metrics_of(workload, kind) if first else ():
         v = spec.reader(m["name"])(run)
         if v is not None:
             metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
+    if first:
+        # each request's seconds, so that a slow run shows whether one
+        # request stalled or every request ran slower
+        print("request seconds " + " ".join(f"{d:.4f}" for d in durations), file=err)
     attempted, failed = len(durations), prob.failed
-    readings = prob.check()
+    readings = {k: float(v) for k, v in prob.check().items()}
+    _refuse_held(err)
+    part = {"metrics": metrics, "attempted": attempted, "failed": failed, "readings": readings,
+            "peak": int(peak),
+            "device_kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"}
+    if summary is not None:
+        part["trace"] = {k: summary[k] for k in ("busy_s", "window_s", "breakdown")}
+    return part
+
+
+def merge_ranks(parts):
+    """One run's share from every rank's (:func:`run_part`), rank 0 first:
+    rank 0's metrics and trace; the worst of every reading; the largest
+    peak, so that it is the fullest device's; the largest ``failed``.
+    Ranks that ran a different number of requests make the run not
+    correct (``same``)."""
+    out = dict(parts[0])
+    readings = {}
+    for p in parts:
+        for k, v in p["readings"].items():
+            readings[k] = worst(readings[k], v) if k in readings else v
+    out["readings"] = readings
+    out["peak"] = max(p["peak"] for p in parts)
+    out["failed"] = max(p["failed"] for p in parts)
+    out["same"] = len({p["attempted"] for p in parts}) == 1
+    return out
+
+
+def finish(workload, part, *, count, device_type, root, out=sys.stdout, err=sys.stderr):
+    """Judge the readings against the cell's limits, print each beside its
+    limit to ``err`` and the result line to ``out``; return the result."""
+    limits = Spec(root).limits(workload)
     checks = {}
     for name, lim in limits.items():
-        v = float(readings.get(name, math.nan))
+        v = float(part["readings"].get(name, math.nan))
         # a number that is not finite fails, and is written as null
         checks[name] = {"value": v if math.isfinite(v) else None, "limit": lim}
-    correct = failed == 0 and all(c["value"] is not None and c["value"] <= c["limit"]
-                                  for c in checks.values())
-    held = sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN_MODULES))
-    if held:
-        print(f"modules of the JAX package or JAX loaded in this process: {held}", file=err)
-        raise SystemExit(3)
-    dev = {"platform": "gpu" if device.type == "cuda" else device.type,
-           "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-           "count": 1, "memory_peak_bytes": int(peak)}
+    attempted, failed = part["attempted"], part["failed"]
+    correct = failed == 0 and part.get("same", True) and all(
+        c["value"] is not None and c["value"] <= c["limit"] for c in checks.values())
+    _refuse_held(err)
+    dev = {"platform": "gpu" if device_type == "cuda" else device_type,
+           "kind": part["device_kind"], "count": count, "memory_peak_bytes": part["peak"]}
+    summary = part.get("trace")
     if summary is not None:
         dev["busy_s"] = summary["busy_s"]
         dev["window_s"] = summary["window_s"]
     result = {"correct": bool(correct), "attempted": attempted, "failed": failed,
-              "metrics": metrics, "device": dev}
+              "metrics": part["metrics"], "device": dev}
     if summary is not None:
         result["breakdown"] = summary["breakdown"]
     result["checks"] = checks
+    if not part.get("same", True):
+        print("the ranks ran different numbers of requests", file=err)
     print(f"attempted {attempted} failed {failed} correct {correct}", file=err)
     for name, c in checks.items():
         print(f"check {name} {_fmt(c['value'])} limit {_fmt(c['limit'])}", file=err)
     err.flush()
     print(json.dumps(result), file=out, flush=True)
     return result
+
+
+def run_cell(workload, seed, seconds, traced, *, device, t_start, root,
+             overrides=None, out=sys.stdout, err=sys.stderr):
+    """Run one cell of one card once, in this process; print the checks to
+    ``err`` and the result line to ``out``; return the result dict."""
+    part = run_part(workload, seed, seconds, traced, device=device, t_start=t_start, root=root,
+                    overrides=overrides, err=err)
+    return finish(workload, part, count=1, device_type=device.type, root=root, out=out, err=err)
+
+
+def _planted(root, workload, overrides, plant):
+    """``overrides`` with the fault ``plant`` (``(mode, kwargs)`` of
+    ``faults.py``), if any, planted in this process."""
+    overrides = dict(overrides or {})
+    if plant is not None:
+        from . import faults
+
+        spec = Spec(root)
+        cfg = dict(spec.config(spec.cell(workload)["config"]), **overrides)
+        mode, kw = plant
+        overrides.update(faults.plant(mode, cfg["problem"], cfg, **kw))
+    return overrides
+
+
+def rank_main(workload, seed, seconds, traced, device_type, t_start, root, overrides, plant):
+    """One rank of a run (the launcher's ``fn``): this rank's card, the
+    fault ``plant`` (``(mode, kwargs)`` of ``faults.py``) if any, then
+    :func:`run_part`, whose set-up counts from the parent's start (the
+    host's monotonic clock is one for every process), so that starting
+    the ranks and the process group is set-up.  What the rank writes to
+    its standard output goes to standard error, so that the parent's
+    result line is the only line of the run's output."""
+    import os
+
+    from petiga_tpu_torch.parallel.launch import rank_device
+
+    sys.stdout.flush()
+    os.dup2(2, 1)
+    device = rank_device("cpu" if device_type == "cpu" else None)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return run_part(workload, seed, seconds, traced, device=device, t_start=t_start, root=root,
+                    overrides=_planted(root, workload, overrides, plant))
+
+
+# the launcher's bounds for a job of several ranks: the whole job (set-up,
+# window, check and, traced, rank 0's trace read), under a run's limit of
+# 360 s so that a hung rank ends the run with every rank killed; and each
+# collective, which must outlast the longest wait of one rank for another:
+# unequal host set-up, and the other ranks waiting in the check's first
+# exchange while rank 0 alone reads its trace (13-20 s at 512^3 on four
+# cards)
+JOB_TIMEOUT_S = 330.0
+COLLECTIVE_TIMEOUT_S = 120.0
+
+
+def run_ranks(workload, seed, seconds, traced, *, chips, t_start, root, device_type="cuda",
+              overrides=None, plant=None, out=sys.stdout, err=sys.stderr):
+    """Run a cell of ``chips`` ranks once, one per card (NCCL), or on the
+    CPU over gloo.  Prints the checks and one result line; returns the
+    result."""
+    from petiga_tpu_torch.parallel.launch import launch
+
+    backend = "nccl" if device_type == "cuda" else "gloo"
+    ranks = launch(rank_main, chips,
+                   (workload, seed, seconds, traced, device_type, t_start, str(root), overrides,
+                    plant),
+                   backend=backend, init_timeout=COLLECTIVE_TIMEOUT_S, timeout=JOB_TIMEOUT_S)
+    return finish(workload, merge_ranks(ranks), count=chips, device_type=device_type, root=root,
+                  out=out, err=err)
+
+
+def run(workload, seed, seconds, traced, *, root, t_start, device_type="cuda", overrides=None,
+        plant=None, out=sys.stdout, err=sys.stderr):
+    """Run a cell once as its ``chips`` ask: in this process on one card,
+    or one rank per card.  ``plant`` (``(mode, kwargs)``) breaks the
+    program as ``faults.py`` says, in every process that runs it."""
+    chips = Spec(root).cell(workload)["chips"]
+    if chips > 1:
+        return run_ranks(workload, seed, seconds, traced, chips=chips, t_start=t_start,
+                         root=root, device_type=device_type, overrides=overrides, plant=plant,
+                         out=out, err=err)
+    overrides = _planted(root, workload, overrides, plant)
+    device = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
+    return run_cell(workload, seed, seconds, traced, device=device, t_start=t_start, root=root,
+                    overrides=overrides, out=out, err=err)

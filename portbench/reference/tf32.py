@@ -35,9 +35,12 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
 class Operator:
     """The fixed operator of ``system`` with TF32 entries, stored as the
     program stores it: one float32 plane per stored slot (the upper slots
-    when ``symmetric``)."""
+    when ``symmetric``).  ``system``'s bands are rounded to TF32 in place,
+    so that its ``slot_block`` gives the TF32 entries.  ``planes=False``
+    stores none: products and the diagonal only, where the planes of the
+    whole grid would not fit one card."""
 
-    def __init__(self, system: System, symmetric: bool):
+    def __init__(self, system: System, symmetric: bool, planes: bool = True):
         self.S = system
         self.kind = "sym" if symmetric else "full"
         self.dof = 1
@@ -46,10 +49,12 @@ class Operator:
             system.terms[i] = (c, [tf32(b.float()).double() for b in bands])
         slots = range(system.diag_slot if symmetric else 0, system.nslots)
         N = system.N
-        self.DT = torch.empty((len(slots), self.st.nnodes), dtype=torch.float32,
-                              device=system.device)
-        for k, s in enumerate(slots):
-            self.DT[k] = tf32(system.slot_block(s, 0, N).float()).reshape(-1)
+        self.DT = None
+        if planes:
+            self.DT = torch.empty((len(slots), self.st.nnodes), dtype=torch.float32,
+                                  device=system.device)
+            for k, s in enumerate(slots):
+                self.DT[k] = tf32(system.slot_block(s, 0, N).float()).reshape(-1)
         self.nplanes = len(slots)
         d = system.slot_block(system.diag_slot, 0, N)
         self.dinv = (1.0 / tf32(d.float())).reshape(-1, 1)

@@ -8,8 +8,10 @@ the window produced against the plain reference, prints each number
 compared beside its limit on standard error, and prints one JSON object as
 the last line of standard output.  ``--trace 1`` reports the per-layer
 metrics from a ``torch.profiler`` trace of the window instead of the
-end-to-end ones.  Without a CUDA device, or with fewer than the cell asks
-for, it exits with code 2 and prints no result.
+end-to-end ones.  A cell of one card runs in this process; a cell of
+``chips`` > 1 runs one rank per card over NCCL, and this process prints
+the result.  Without a CUDA device, or with fewer than the cell asks for,
+it exits with code 2 and prints no result.
 """
 
 import time
@@ -50,10 +52,9 @@ def main(argv=None):
               f"{torch.cuda.device_count()} available", file=sys.stderr)
         return 2
 
-    from portbench.harness import run_cell
+    from portbench.harness import run
 
-    run_cell(ns.workload, ns.seed, ns.seconds, bool(ns.trace), device=torch.device("cuda", 0),
-             t_start=T_START, root=ROOT)
+    run(ns.workload, ns.seed, ns.seconds, bool(ns.trace), root=ROOT, t_start=T_START)
     return 0
 
 

@@ -144,3 +144,32 @@ def test_a_cell_is_added_by_files_and_entries_alone(tmp_path):
         assert r["correct"]
         want = {"solve_s", "setup_s"} if not traced else {"solves.solve"}
         assert want <= set(r["metrics"])
+
+
+def test_four_card_cells_keep_to_their_share():
+    """At most a quarter of the cells, rounded down, ask for four cards;
+    one always may."""
+    four = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(CELLS) // 4), four
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"] if w["chips"] > 1])
+def test_a_multi_card_cell_runs_its_configured_grid(cell):
+    """A configuration of several ranks states as many ranks as its cell's
+    cards, and the process grid the program's partitioner chooses."""
+    from petiga_tpu_torch.parallel.partition import factor_grid
+
+    spec = Spec(ROOT)
+    w = spec.cell(cell)
+    cfg = spec.config(w["config"])
+    assert cfg["ranks"] == w["chips"]
+    nodes = (cfg["nel"] + cfg["p"],) * cfg["dim"]
+    assert list(factor_grid(cfg["ranks"], nodes)) == cfg["pgrid"]
+    assert cfg["nodes"] == (cfg["nel"] + cfg["p"]) ** cfg["dim"]
+
+
+def test_space_build_is_read_in_every_cell():
+    """Every cell builds its space in set-up, the distributed cell its
+    ``DistSpace`` with it, and counts the seconds."""
+    m = next(m for m in BENCH["per_layer"] if m["name"] == "space_build_s.setup")
+    assert sorted(m["workloads"]) == sorted(CELLS)
