@@ -52,7 +52,6 @@ from __future__ import annotations
 
 import contextlib
 import math
-import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -75,48 +74,11 @@ from ..assembly.tabulation import tabulate_elements
 from ..solve import krylov
 from ..sparse.spmv import StencilOperator
 from ..sparse.stencil import Stencil
+from ..utils.profiling import Spans
 from .launch import rank_device
 from .partition import factor_grid
 
 __all__ = ["DistSpace", "DistThetaStepper", "DistAlphaStepper", "Spans"]
-
-
-class Spans:
-    """Time per named span of one rank (``"kernel"``, ``"halo"``,
-    ``"allreduce"``): CUDA events on the card, the host clock on the
-    CPU.  Set ``DistSpace.spans = Spans()`` to collect; off (None) by
-    default."""
-
-    def __init__(self):
-        self._ev: dict = {}
-
-    @contextlib.contextmanager
-    def __call__(self, name: str, device: torch.device):
-        if device.type == "cuda":
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            yield
-            e1.record()
-            self._ev.setdefault(name, []).append((e0, e1))
-        else:
-            t0 = time.perf_counter()
-            yield
-            self._ev.setdefault(name, []).append(1e3 * (time.perf_counter() - t0))
-
-    def ms(self) -> dict:
-        """Total milliseconds and count per span name (synchronises)."""
-        out = {}
-        for name, evs in self._ev.items():
-            tot = 0.0
-            for e in evs:
-                if isinstance(e, tuple):
-                    e[1].synchronize()
-                    tot += e[0].elapsed_time(e[1])
-                else:
-                    tot += e
-            out[name] = {"ms": tot, "n": len(evs)}
-        return out
 
 
 class LocalPlanes(NamedTuple):

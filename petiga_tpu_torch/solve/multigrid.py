@@ -9,12 +9,15 @@ operators are re-assembled on each level; the V-cycle smooths with
 weighted Jacobi and solves the coarsest level by CG with a fixed budget.
 Every smoother, residual and coarse product goes through
 ``A.fast_operator()``, that is, through the stencil SpMV kernel on the
-card.  :func:`mg_local_preconditioner` is the distributed variant for
+card.  The V-cycle carries PCMG's log events as named ranges, counters
+and optional CUDA-event spans (:class:`MGPreconditioner`).
+:func:`mg_local_preconditioner` is the distributed variant for
 :class:`~petiga_tpu_torch.parallel.dist.DistSpace`'s solvers.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import numpy as np
@@ -23,11 +26,15 @@ import torch
 from ..core.axis import Axis
 from ..core.bspline import bspline_ders
 from ..core.space import Space
+from ..utils import profiling
+from ..utils.profiling import Spans
 
 __all__ = [
     "knot_insertion_matrix",
     "prolongation_1d",
     "MGHierarchy",
+    "MGPreconditioner",
+    "budget_cg",
     "mg_preconditioner",
     "mg_local_preconditioner",
 ]
@@ -174,53 +181,194 @@ class MGHierarchy:
                                   fs.dof)
 
 
+# the coarse CG's relative tolerance
+COARSE_RTOL = 1e-10
+
+
+def budget_cg(A, b, M, rtol: float, maxiter: int):
+    """:func:`~petiga_tpu_torch.solve.krylov.cg` from ``x0 = 0`` for a
+    budget of ``maxiter`` iterations, with no host read.  The stopping
+    test ``‖r‖ <= rtol·‖b‖`` is taken on the device, and from the first
+    iteration that passes it ``x``, ``r`` and ``p`` stay as they are: the
+    answer and the count of iterations that moved it are ``cg``'s, bit
+    for bit, while every call launches the same ``maxiter + 1`` products
+    and nothing waits for the device, so a CUDA graph can hold the whole
+    solve.  Returns ``(x, iters)``, ``iters`` a 0-d int64 tensor on the
+    device of ``b``."""
+    from .krylov import _dot as dot
+
+    x = torch.zeros_like(b)
+    r = b - A.matvec(x)
+    z = M(r)
+    p = z
+    rz = dot(r, z)
+    # cg's host threshold, (rtol·‖b‖)² in float64, on the device
+    tol2 = (rtol * torch.sqrt(dot(b, b)).double()) ** 2
+    active = torch.ones((), dtype=torch.bool, device=b.device)
+    iters = torch.zeros((), dtype=torch.int64, device=b.device)
+    for _ in range(maxiter):
+        active = active & (dot(r, r).double() > tol2)
+        iters = iters + active
+        Ap = A.matvec(p)
+        alpha = torch.where(active, rz / dot(p, Ap), 0.0)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rz_new = dot(r, z)
+        p = torch.where(active, z + (rz_new / rz) * p, p)
+        rz = rz_new
+    return x, iters
+
+
+class MGPreconditioner:
+    """V-cycle preconditioner ``M(r) ≈ A⁻¹ r`` on an :class:`MGHierarchy`.
+
+    Weighted-Jacobi smoothing (``nsmooth`` sweeps before and after);
+    the coarsest level solved by Jacobi-CG to rtol 1e-10 within a fixed
+    budget of ``coarse_iters`` iterations, as the reference's static
+    shapes require: whichever of the two comes first ends it, and
+    :func:`budget_cg` still launches the whole budget.
+    Every product runs on the levels' kernel operators
+    (``fast_operator()``).  The coarse solve is :func:`budget_cg`, which
+    reads nothing back to the host; on the card, with ``graph`` (the
+    default), it is captured once into a CUDA graph and replayed, so its
+    50 iterations of kernels on a few hundred nodes cost one launch
+    instead of a host round trip each.  Each replay adds the stencil
+    launches the graph holds to ``spmv.LAUNCHES``, as eager calls would.
+
+    Tracing, after PETSc's PCMG log events (level 0 the coarsest):
+    ``profiling.annotate`` ranges ``PCMG_VCycle`` around each cycle,
+    ``MGSmooth Level k``, ``MGResid Level k`` and ``MGInterp Level k``
+    (restriction from and interpolation to level k) on every level above
+    the coarsest, and ``MGCoarse`` around the coarse solve.  ``counts``
+    gives the counters, always kept: ``vcycles``, ``coarse_iters`` (the
+    coarse CG's iterations that moved its answer; counted on the device,
+    so reading ``counts`` waits for it) and ``products`` (stencil
+    products launched per level, coarse first); the coarse count is added
+    up on the device, inside the graph on the card.  ``spans`` is None by
+    default; set it to a :class:`~petiga_tpu_torch.utils.profiling.Spans`
+    to time each cycle (``"vcycle"``) and coarse solve (``"coarse"``) with
+    CUDA events."""
+
+    def __init__(self, hier: MGHierarchy, *, nsmooth: int = 2, omega: float = 0.6,
+                 coarse_iters: int = 50, graph: bool = True):
+        from .krylov import jacobi_preconditioner
+
+        self.hier = hier
+        self.nsmooth, self.omega, self.coarse_iters = nsmooth, omega, coarse_iters
+        self.nlev = len(hier.spaces)
+        self.dof = hier.spaces[-1].dof
+        self.device = hier.spaces[-1].device
+        self.diags = []
+        for A in hier.operators:
+            d = A.scalar_diagonal()
+            self.diags.append(torch.where(
+                d != 0, 1.0 / torch.where(d == 0, torch.ones_like(d), d), torch.ones_like(d)))
+        self.fastops = [A if not hasattr(A, "fast_operator") else A.fast_operator()
+                        for A in hier.operators]
+        self.coarse_M = jacobi_preconditioner(hier.operators[0])
+        self.spans: Optional[Spans] = None
+        self._vcycles = 0
+        self._products = [0] * self.nlev
+        self._coarse_iters = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.graph = graph
+        self._graph = None
+        self._names = [(f"MGSmooth Level {k}", f"MGResid Level {k}", f"MGInterp Level {k}")
+                       for k in range(self.nlev)]
+
+    @property
+    def counts(self) -> dict:
+        return {"vcycles": self._vcycles, "coarse_iters": int(self._coarse_iters),
+                "products": list(self._products)}
+
+    def _span(self, name):
+        if self.spans is None:
+            return contextlib.nullcontext()
+        return self.spans(name, self.device)
+
+    def _coarse_solve(self, b):
+        """:func:`budget_cg` on the coarsest level, its iterations added to
+        the coarse count: eagerly off the card or without ``graph``; on
+        it, the graph captured at the first call, replayed on a copy of
+        ``b``.  The answer is copied out of the graph's output, which the
+        next replay overwrites."""
+        from ..sparse import spmv
+
+        A, M, k = self.fastops[0], self.coarse_M, self.coarse_iters
+        if b.device.type != "cuda" or not self.graph:
+            x, iters = budget_cg(A, b, M, COARSE_RTOL, k)
+            self._coarse_iters += iters
+            return x
+        if self._graph is None:
+            self._b = b.clone()
+            # the first calls load the kernel library and cuBLAS's handle,
+            # which a capture may not do
+            side = torch.cuda.Stream(b.device)
+            side.wait_stream(torch.cuda.current_stream(b.device))
+            with torch.cuda.stream(side):
+                budget_cg(A, self._b, M, COARSE_RTOL, k)
+            torch.cuda.current_stream(b.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            before = dict(spmv.LAUNCHES)
+            # thread_local: another thread's CUDA calls (a profiler's) do
+            # not break this thread's capture
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._x, iters = budget_cg(A, self._b, M, COARSE_RTOL, k)
+                self._coarse_iters += iters
+            # the capture counted launches that only its replays make
+            self._graph_launches = {n: spmv.LAUNCHES[n] - before[n] for n in before}
+            for n, c in self._graph_launches.items():
+                spmv.LAUNCHES[n] -= c
+            self._graph = graph
+        self._b.copy_(b)
+        self._graph.replay()
+        for n, c in self._graph_launches.items():
+            spmv.LAUNCHES[n] += c
+        return self._x.clone()
+
+    def _smooth(self, lvl, x, b):
+        A, dinv = self.fastops[lvl], self.diags[lvl]
+        with profiling.annotate(self._names[lvl][0]):
+            for _ in range(self.nsmooth):
+                x = x + self.omega * dinv * (b - A.matvec(x))
+        self._products[lvl] += self.nsmooth
+        return x
+
+    def _vcycle(self, lvl, b):
+        if lvl == 0:
+            with profiling.annotate("MGCoarse"), self._span("coarse"):
+                x = self._coarse_solve(b)
+            self._products[0] += self.coarse_iters + 1  # and the initial residual
+            return x
+        _, resid, interp = self._names[lvl]
+        x = self._smooth(lvl, torch.zeros_like(b), b)
+        with profiling.annotate(resid):
+            r = b - self.fastops[lvl].matvec(x)
+        self._products[lvl] += 1
+        with profiling.annotate(interp):
+            rc = self.hier.restrict(lvl - 1, r)
+        xc = self._vcycle(lvl - 1, rc)
+        with profiling.annotate(interp):
+            x = x + self.hier.prolong(lvl - 1, xc)
+        return self._smooth(lvl, x, b)
+
+    def __call__(self, r):
+        with profiling.annotate("PCMG_VCycle"), self._span("vcycle"):
+            y = self._vcycle(self.nlev - 1, r.reshape(-1, self.dof)).reshape(r.shape)
+        self._vcycles += 1
+        return y
+
+
 def mg_preconditioner(
     hier: MGHierarchy,
     *,
     nsmooth: int = 2,
     omega: float = 0.6,
     coarse_iters: int = 50,
-):
-    """V-cycle preconditioner ``M(r) ≈ A⁻¹ r``.
-
-    Weighted-Jacobi smoothing (``nsmooth`` sweeps before and after);
-    the coarsest level solved by Jacobi-CG to rtol 1e-10 within a fixed
-    budget of ``coarse_iters`` iterations, as the reference's static
-    shapes require (in f32 the budget, not the tolerance, ends it).
-    Every product runs on the levels' kernel operators
-    (``fast_operator()``)."""
-    from .krylov import cg, jacobi_preconditioner
-
-    nlev = len(hier.spaces)
-    diags = []
-    for A in hier.operators:
-        d = A.scalar_diagonal()
-        diags.append(torch.where(d != 0, 1.0 / torch.where(d == 0, torch.ones_like(d), d),
-                                 torch.ones_like(d)))
-    fastops = [A if not hasattr(A, "fast_operator") else A.fast_operator()
-               for A in hier.operators]
-    coarse_M = jacobi_preconditioner(hier.operators[0])
-
-    def smooth(lvl, x, b):
-        A, dinv = fastops[lvl], diags[lvl]
-        for _ in range(nsmooth):
-            x = x + omega * dinv * (b - A.matvec(x))
-        return x
-
-    def vcycle(lvl, b):
-        if lvl == 0:
-            return cg(fastops[0], b, M=coarse_M, rtol=1e-10, maxiter=coarse_iters).x
-        x = smooth(lvl, torch.zeros_like(b), b)
-        rc = hier.restrict(lvl - 1, b - fastops[lvl].matvec(x))
-        x = x + hier.prolong(lvl - 1, vcycle(lvl - 1, rc))
-        return smooth(lvl, x, b)
-
-    dof = hier.spaces[-1].dof
-
-    def M(r):
-        return vcycle(nlev - 1, r.reshape(-1, dof)).reshape(r.shape)
-
-    return M
+) -> MGPreconditioner:
+    """The V-cycle preconditioner of ``hier``
+    (:class:`MGPreconditioner`)."""
+    return MGPreconditioner(hier, nsmooth=nsmooth, omega=omega, coarse_iters=coarse_iters)
 
 
 def mg_local_preconditioner(
@@ -263,7 +411,9 @@ def mg_local_preconditioner(
             raise ValueError("grid too coarse for a multigrid hierarchy")
         sub = MGHierarchy(hier.spaces[:-1], hier.operators[:-1], hier.prolongs[:-1])
         Ac = sub.operators[-1]
-        coarse_M = (mg_preconditioner(sub, nsmooth=nsmooth, omega=omega)
+        # no CUDA graph: every rank would capture its own beside the
+        # process group's threads
+        coarse_M = (MGPreconditioner(sub, nsmooth=nsmooth, omega=omega, graph=False)
                     if len(sub.spaces) > 1 else jacobi_preconditioner(Ac))
         Ac_op = Ac.fast_operator() if hasattr(Ac, "fast_operator") else Ac
         cs = sub.spaces[-1]
